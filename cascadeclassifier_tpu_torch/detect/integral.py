@@ -1,0 +1,52 @@
+"""Canvas integrals (kernel 1): inclusive 2-D prefix sums of the pixel
+canvas and of its square, int32 with wrap-around mod 2^32.
+
+Counterpart of ``cascadeclassifier_tpu/detect/pallas_integral.py::
+make_integral_fn`` (and of the chained ``jnp.cumsum`` in
+``detector.py::_build_canvas``). A CUDA tensor runs ``csrc/integral.cu``;
+a CPU tensor, or ``impl="ref"``, runs the plain PyTorch twin.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cascadeclassifier_tpu_torch import _build
+
+# rows per column chunk of the kernel's carry pass
+CHUNK_ROWS = 64
+
+
+def wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 → int32 modulo 2^32 (two's complement), explicitly."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def integral_ref(px: torch.Tensor):
+    """Plain twin: int64 cumsums (torch.cumsum promotes int32 to int64
+    anyway), narrowed to int32 mod 2^32."""
+    p = px.to(torch.int64)
+    s = torch.cumsum(torch.cumsum(p, dim=1), dim=0)
+    q = torch.cumsum(torch.cumsum(p * p, dim=1), dim=0)
+    return wrap_i32(s), wrap_i32(q)
+
+
+def integral(px: torch.Tensor, impl: str = "auto"):
+    """px (H, W) int32 pixel canvas → (sum, sq), both (H, W) int32."""
+    if _build.use_ref(px, impl):
+        return integral_ref(px)
+    _build.require(px, torch.int32, 2, "px", px.device)
+    h, w = px.shape
+    lib = _build.lib()
+    s = torch.empty_like(px)
+    q = torch.empty_like(px)
+    nk = -(-h // CHUNK_ROWS)
+    tot = torch.empty((2 * nk * w,), dtype=torch.int32, device=px.device)
+    code = lib.cct_integral(
+        px.data_ptr(), s.data_ptr(), q.data_ptr(), tot.data_ptr(),
+        h, w, CHUNK_ROWS, _build.stream_of(px),
+    )
+    _build.check(code, "cct_integral")
+    _build.LAUNCHES["integral"] += 1
+    return s, q

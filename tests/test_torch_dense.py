@@ -1,0 +1,143 @@
+"""Canvas resize, variance gate, stage 0 and the OpenCV walk of the PyTorch
+port against the JAX package (``detector._build_canvas``, ``dense.py``,
+``engine.py``), on the same unpacked plans and images."""
+
+import functools
+import os
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from cascadeclassifier_tpu.detect import dense as jdense  # noqa: E402
+from cascadeclassifier_tpu.detect import engine as jengine  # noqa: E402
+from cascadeclassifier_tpu.detect.detector import (  # noqa: E402
+    PackedCascade as JPackedCascade,
+)
+from cascadeclassifier_tpu.detect.detector import (  # noqa: E402
+    _build_canvas,
+    _resize_matrices,
+    plan_tables,
+)
+from cascadeclassifier_tpu.detect.pyramid import build_plan as jbuild_plan  # noqa: E402
+from cascadeclassifier_tpu.models.xml_io import read_cascade_xml  # noqa: E402
+from cascadeclassifier_tpu_torch.convert import from_jax_packed, plan_from_jax  # noqa: E402
+from cascadeclassifier_tpu_torch.detect import dense  # noqa: E402
+from cascadeclassifier_tpu_torch.detect.detector import (  # noqa: E402
+    build_pixel_canvas,
+    resize_tables,
+)
+from cascadeclassifier_tpu_torch.detect.engine import Engine  # noqa: E402
+from cascadeclassifier_tpu_torch.detect.integral import integral  # noqa: E402
+
+from .utils_synth import face_blob_image  # noqa: E402
+
+HAAR_ALT = os.path.join(  # the port's vendored copy of OpenCV's file
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "cascadeclassifier_tpu_torch", "data", "haarcascade_frontalface_alt.xml",
+)
+GEOMS = [(200, 150, 1.1, 5), (173, 131, 1.25, 6)]
+
+
+@pytest.fixture(scope="module")
+def jpacked():
+    return JPackedCascade.from_model(read_cascade_xml(HAAR_ALT))
+
+
+def _frame(w, h, seed):
+    if seed == 5:
+        pytest.importorskip("cv2")
+        return face_blob_image(w, h, n=3, seed=seed)
+    return np.random.default_rng(seed).integers(0, 256, (h, w)).astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def _canvases(w, h, sf, seed):
+    """(img, jax plan, jax (sum, sq), port plan, port (sum, sq)), built
+    once per geometry for the whole module."""
+    img = _frame(w, h, seed)
+    jplan = jbuild_plan(w, h, 20, 20, sf, None, None)
+    js, jq, _ = _build_canvas(
+        jnp.asarray(img), plan_tables(jplan), w, h, need_sq=True,
+        resize_mats=_resize_matrices(jplan),
+    )
+    plan = plan_from_jax(jplan)
+    px = build_pixel_canvas(torch.from_numpy(img), plan, resize_tables(plan, "cpu"))
+    s, q = integral(px)
+    return img, jplan, (js, jq), plan, (s, q)
+
+
+@pytest.mark.parametrize("w,h,sf,seed", GEOMS)
+def test_canvas_matches_jax_build_canvas(w, h, sf, seed):
+    _, _, (js, jq), plan, (s, q) = _canvases(w, h, sf, seed)
+    assert tuple(s.shape) == (plan.canvas_h, plan.canvas_w)
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+
+
+@pytest.mark.parametrize("w,h,sf,seed", GEOMS)
+def test_gate_and_stage0_match_jax_dense(w, h, sf, seed, jpacked):
+    _, _, (js, jq), plan, (s, q) = _canvases(w, h, sf, seed)
+    oh, ow = plan.out_h, plan.out_w
+    jgate, jinv = jdense.dense_variance_gate(js, jq, 20, 20, oh, ow)
+    gate, inv = dense.dense_variance_gate(s, q, 20, 20, oh, ow)
+    assert int(gate.sum()) > 100
+    np.testing.assert_array_equal(gate.numpy(), np.asarray(jgate))
+    np.testing.assert_array_equal(
+        inv.numpy().view(np.int32), np.asarray(jinv).view(np.int32)
+    )
+    cas = from_jax_packed(jpacked)
+    for si in (0, 1):
+        jsum = jdense.dense_stage_haar(
+            js, js, jpacked.stages[si], oh, ow, jinv, exact=False
+        )
+        ssum = dense.dense_stage_haar(s, cas.stages[si], oh, ow, inv)
+        np.testing.assert_array_equal(
+            ssum.numpy().view(np.int32), np.asarray(jsum).view(np.int32)
+        )
+
+
+def test_prep_matches_jax_prep_composition(jpacked):
+    """Engine.prep == gate ∧ grid ∧ stage-0 pass ∧ parity walk, built from
+    the JAX package's dense.py / engine.py pieces."""
+    w, h, sf, seed = GEOMS[0]
+    _, jplan, (js, jq), plan, (s, q) = _canvases(w, h, sf, seed)
+    oh, ow = plan.out_h, plan.out_w
+    jgate, jinv = jdense.dense_variance_gate(js, jq, 20, 20, oh, ow)
+    st0 = jpacked.stages[0]
+    passed0 = jdense.dense_stage_haar(js, js, st0, oh, ow, jinv, exact=False) >= (
+        jnp.float32(st0.threshold)
+    )
+    grid = jnp.asarray(jengine.static_visit_grid(jplan))
+    visited = jengine.parity_visited(jgate & ~passed0, grid)
+    want = np.asarray(jgate & grid & passed0 & visited)
+    eng = Engine(from_jax_packed(jpacked), "cpu")
+    inv, alive = eng.prep(s, q, plan)
+    assert want.sum() > 0
+    np.testing.assert_array_equal(alive.numpy(), want)
+    np.testing.assert_array_equal(inv.numpy(), np.asarray(jinv))
+
+
+@pytest.mark.parametrize("w,h,sf", [(160, 120, 1.2), (137, 101, 1.1)])
+def test_walk_matches_jax_parity_visited_and_scan(w, h, sf):
+    rng = np.random.default_rng(2)
+    jplan = jbuild_plan(w, h, 20, 20, sf)
+    plan = plan_from_jax(jplan)
+    oh = plan.out_h
+    grid = dense.static_visit_grid(plan)
+    np.testing.assert_array_equal(grid, jengine.static_visit_grid(jplan))
+    m0 = rng.random((oh, plan.out_w)) < 0.35
+    got = dense.parity_visited(torch.from_numpy(m0), torch.from_numpy(grid))
+    want = jengine.parity_visited(jnp.asarray(m0), jnp.asarray(grid))
+    scan = jdense.dense_walk_visited(
+        jnp.asarray(m0),
+        jnp.asarray(jplan.row_is_grid[:oh]),
+        jnp.asarray(jplan.row_step2[:oh]),
+        jnp.asarray(jplan.row_maxc[:oh]),
+    )
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(scan))

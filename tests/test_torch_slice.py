@@ -1,0 +1,65 @@
+"""The PyTorch port's whole detection slice against the JAX package's fused
+engine (interpret mode) and XLA engine."""
+
+import dataclasses
+import os
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+cv2 = pytest.importorskip("cv2")
+
+import numpy as np  # noqa: E402
+
+from cascadeclassifier_tpu.detect.detector import TPUDetector  # noqa: E402
+from cascadeclassifier_tpu.models.xml_io import (  # noqa: E402
+    read_cascade_xml as jread_cascade_xml,
+)
+from cascadeclassifier_tpu_torch.detect.detector import TorchDetector  # noqa: E402
+from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml  # noqa: E402
+
+from .utils_synth import face_blob_image  # noqa: E402
+
+HAAR_ALT = os.path.join(  # the port's vendored copy of OpenCV's file
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "cascadeclassifier_tpu_torch", "data", "haarcascade_frontalface_alt.xml",
+)
+
+
+def _sorted(rects):
+    return sorted(map(tuple, np.asarray(rects).tolist()))
+
+
+def test_slice_matches_jax_fused_and_xla_engines():
+    """As tests/test_detector.py's hybrid fused test sets it up: the first
+    10 stages, front cut over at 50 trees on both sides (stages 1-3 in the
+    front, 4-9 in the tail), sf 1.2, minNeighbors 0 — the raw windows."""
+    img = face_blob_image(240, 180, n=4, seed=7)
+    jm = jread_cascade_xml(HAAR_ALT)
+    jm10 = dataclasses.replace(jm, stages=list(jm.stages[:10]))
+    fus = TPUDetector(jm10, exact=False, engine="fused", pallas_interpret=True)
+    fus._fused.STATIC_FRONT_TREES = 50
+    fus._fused.tail_n = 4096
+    want_fused = _sorted(fus.detect_multi_scale(img, 1.2, 0))
+    want_xla = _sorted(
+        TPUDetector(jm10, exact=False, engine="xla").detect_multi_scale(img, 1.2, 0)
+    )
+
+    m = read_cascade_xml(HAAR_ALT)
+    m10 = dataclasses.replace(m, stages=list(m.stages[:10]))
+    det = TorchDetector(m10, exact=False, device="cpu", front_trees=50)
+    got = _sorted(det.detect_multi_scale(img, 1.2, 0))
+    assert det.engine.n_dense == fus._fused.n_dense == 4
+    assert det.engine.last_counts["front_survivors"] > 0  # the tail ran
+    assert len(got) > 0
+    assert got == want_fused == want_xla
+
+
+def test_detector_refuses_what_is_not_ported():
+    m = read_cascade_xml(HAAR_ALT)
+    with pytest.raises(NotImplementedError):
+        TorchDetector(m, exact=True, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            TorchDetector(m, device="cuda")
