@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
 The kernels in ``csrc/*.cu`` expose a plain ``extern "C"`` interface. At
-first use they are compiled with ``nvcc`` into one shared library under
+first use each source is compiled by its own ``nvcc``, all started
+together, and the objects are linked into one shared library under
 ``cascadeclassifier_tpu_torch/_build/<hash>/``, keyed by a hash of the
 sources and flags, and loaded with ``ctypes``. Nothing here includes
 PyTorch's headers, so a build takes seconds rather than minutes.
@@ -28,13 +29,12 @@ import tempfile
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("integral.cu", "front.cu", "patchify.cu")
+SOURCES = ("integral.cu", "front.cu", "patchify.cu", "tilted.cu", "stage.cu")
 NVCC_FLAGS = (
     "-O3",
     "--fmad=false",
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17",
-    "-shared",
     "-Xcompiler", "-fPIC",
 )
 LIB_NAME = "libcctorch_kernels.so"
@@ -52,6 +52,12 @@ _SIGNATURES = {
                   _P, _P, _P, _P, _P, _I, _I, _P],
     # canvas, canvas_h, canvas_w, r, c, n, cnt, ph, pw, out, stream
     "cct_patchify": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
+    # px, out, h, w, segments, n segments, padded width, stream
+    "cct_tilted": [_P, _P, _I, _I, _P, _I, _I, _P],
+    # sum, tilt, canvas_w, inv, alive_in, alive_out, passed0, out_h, out_w,
+    # rects, weights, tree params, tilted, stage_start, stage_thr, s0, s1, stream
+    "cct_stage": [_P, _P, _I, _P, _P, _P, _P, _I, _I,
+                  _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None
@@ -89,19 +95,28 @@ def build() -> str:
     nvcc = _find_nvcc()
     # build next to the target, then rename: a concurrent or interrupted
     # build never leaves a half-written library at lib_path
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, s.replace(".cu", ".o")) for s in SOURCES]
+        jobs = [
+            [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC_DIR, s), "-o", o]
+            for s, o in zip(SOURCES, objs)
+        ]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in jobs]
+        outputs = [proc.communicate()[0] for proc in procs]  # every job ends first
+        for cmd, proc, output in zip(jobs, procs, outputs):
+            _raise_on_failure(cmd, proc.returncode, output)
+        so = os.path.join(tmp, LIB_NAME)
+        cmd = [nvcc, "-shared", "-o", so, *objs]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        _raise_on_failure(cmd, proc.returncode, proc.stdout)
+        os.replace(so, lib_path)
     return lib_path
+
+
+def _raise_on_failure(cmd, code: int, output: str):
+    if code != 0:
+        raise RuntimeError(f"nvcc failed (exit {code}):\n{' '.join(cmd)}\n{output}")
 
 
 def lib() -> ctypes.CDLL:

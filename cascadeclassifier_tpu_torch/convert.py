@@ -12,13 +12,14 @@ import numpy as np
 
 from cascadeclassifier_tpu_torch.detect.detector import PackedCascade, PackedStage
 from cascadeclassifier_tpu_torch.detect.pyramid import PyramidPlan
+from cascadeclassifier_tpu_torch.models.model import FEATURE_HAAR
 
 
 def from_jax_packed(packed) -> PackedCascade:
     """``cascadeclassifier_tpu.detect.detector.PackedCascade`` → the port's
-    ``PackedCascade`` (stump Haar, untilted)."""
-    if packed.has_tilted:
-        raise NotImplementedError("tilted Haar features are not ported yet")
+    ``PackedCascade`` (stump Haar, upright and tilted)."""
+    if packed.feature_type != FEATURE_HAAR:
+        raise NotImplementedError("the port runs Haar cascades only")
     stages = []
     for st in packed.stages:
         if st.deep_trees is not None:
@@ -28,6 +29,7 @@ def from_jax_packed(packed) -> PackedCascade:
             ntrees=int(st.ntrees),
             feat_rects=np.asarray(st.feat_rects, np.int32),
             weights=np.asarray(st.weights, np.float32),
+            tilted=np.asarray(st.tilted, bool),
             thr=np.asarray(st.thr, np.float32),
             left_leaf=np.asarray(st.left_leaf, np.float32),
             right_leaf=np.asarray(st.right_leaf, np.float32),
@@ -37,7 +39,8 @@ def from_jax_packed(packed) -> PackedCascade:
 
 def plan_from_jax(plan) -> PyramidPlan:
     """An unpacked ``cascadeclassifier_tpu.detect.pyramid.PyramidPlan`` →
-    the port's ``PyramidPlan`` (the fields the port uses)."""
+    the port's ``PyramidPlan`` (the fields the port uses, ``is_top``
+    among them)."""
     if plan.packed:
         raise ValueError("the port uses the unpacked plan (pack_band=False)")
     return PyramidPlan(

@@ -4,7 +4,7 @@ Counterpart of ``cascadeclassifier_tpu/detect/detector.py``: the packed
 cascade, the exact INTER_LINEAR_EXACT canvas resize, the mapping of
 window positions to image rects, and ``TorchDetector``, whose
 ``detect_multi_scale`` matches cv::CascadeClassifier::detectMultiScale
-for untilted stump Haar cascades with f32 stage sums.
+for stump Haar cascades, upright or tilted, with f32 stage sums.
 
 Runtime semantics replicated:
   - variance gate: reject window unless nf² > 0 and area/nf < 0.1
@@ -33,6 +33,7 @@ class PackedStage:
     ntrees: int
     feat_rects: np.ndarray  # (T, 3, 4) int32 rect geometry (x, y, w, h)
     weights: np.ndarray  # (T, 3) float32, 0 for absent rects
+    tilted: np.ndarray  # (T,) bool — the tree's feature is a 45° one
     thr: np.ndarray  # (T,) float32
     left_leaf: np.ndarray  # (T,) float32
     right_leaf: np.ndarray  # (T,) float32
@@ -40,19 +41,21 @@ class PackedStage:
 
 @dataclasses.dataclass
 class PackedCascade:
-    """Stump Haar cascade as flat arrays (untilted only)."""
+    """Stump Haar cascade (upright and tilted features) as flat arrays."""
 
     win_w: int
     win_h: int
     stages: list
     _tables: dict = dataclasses.field(default_factory=dict, repr=False)
 
+    @property
+    def has_tilted(self) -> bool:
+        return any(st.tilted.any() for st in self.stages)
+
     @classmethod
     def from_model(cls, m: CascadeModel) -> "PackedCascade":
         if m.feature_type != FEATURE_HAAR:
             raise NotImplementedError("the port runs Haar cascades only")
-        if m.uses_tilted():
-            raise NotImplementedError("tilted Haar features are not ported yet")
         if m.max_tree_nodes() > 1:
             raise NotImplementedError("deep-tree cascades are not ported yet")
         stages = []
@@ -60,6 +63,7 @@ class PackedCascade:
             t = len(s.trees)
             fr = np.zeros((t, 3, 4), np.int32)
             w = np.zeros((t, 3), np.float32)
+            tl = np.zeros(t, bool)
             thr = np.zeros(t, np.float32)
             ll = np.zeros(t, np.float32)
             rl = np.zeros(t, np.float32)
@@ -72,28 +76,30 @@ class PackedCascade:
                 for ri, (x, y, rw, rh, wt) in enumerate(f.rects):
                     fr[i, ri] = (x, y, rw, rh)
                     w[i, ri] = wt
+                tl[i] = f.tilted
                 thr[i] = tree.threshold[0]
             stages.append(PackedStage(
                 threshold=np.float32(s.threshold) - THRESHOLD_EPS,
-                ntrees=t, feat_rects=fr, weights=w, thr=thr,
+                ntrees=t, feat_rects=fr, weights=w, tilted=tl, thr=thr,
                 left_leaf=ll, right_leaf=rl,
             ))
         return cls(win_w=m.width, win_h=m.height, stages=stages)
 
     def __post_init__(self):
+        """Every rect's corners lie inside the window, so no kernel read
+        leaves the canvas: upright (x, y)..(x+w, y+h); tilted (x, y),
+        (x−h, y+h), (x+w, y+w), (x+w−h, y+w+h) (dense.py's assert)."""
         for si, st in enumerate(self.stages):
-            fr = st.feat_rects
-            inside = (
-                (fr[..., 0] >= 0) & (fr[..., 1] >= 0)
-                & (fr[..., 0] + fr[..., 2] <= self.win_w)
-                & (fr[..., 1] + fr[..., 3] <= self.win_h)
-            )
+            x, y, w, h = np.moveaxis(st.feat_rects, -1, 0)
+            upright = (x >= 0) & (y >= 0) & (x + w <= self.win_w) & (y + h <= self.win_h)
+            tilted = (x - h >= 0) & (y >= 0) & (x + w <= self.win_w) & (y + w + h <= self.win_h)
+            inside = np.where(st.tilted[:, None], tilted, upright)
             if not inside.all():
                 raise ValueError(f"stage {si}: a rect leaves the {self.win_w}x{self.win_h} window")
 
     def device_table(self, device) -> dict:
-        """Every tree's parameters as flat device buffers (the front
-        kernel's input), built once per device."""
+        """Every tree's parameters as flat device buffers (the front and
+        stage kernels' input), built once per device."""
         key = str(torch.device(device))
         if key not in self._tables:
             cat = np.concatenate
@@ -106,6 +112,7 @@ class PackedCascade:
             self._tables[key] = dict(
                 rects=dev(cat([s.feat_rects for s in st]), torch.int32),
                 weights=dev(cat([s.weights for s in st]), torch.float32),
+                tilted=dev(cat([s.tilted for s in st]), torch.int32),
                 tparam=dev(
                     np.stack([cat([s.thr for s in st]),
                               cat([s.left_leaf for s in st]),
@@ -187,12 +194,19 @@ class TorchDetector:
 
     device: where the work runs ("cuda", "cuda:0", "cpu"); "cuda" with no
     card present raises — nothing falls back to the CPU. impl="ref" runs
-    the plain PyTorch twin of every kernel (on any device)."""
+    the plain PyTorch twin of every kernel (on any device).
+
+    engine, as the JAX package names them: "fused" (``Engine``, upright
+    stump Haar), "pallas" (``StageEngine``, any stump Haar cascade), or
+    "auto" ("fused" for an upright cascade, "pallas" for a tilted one).
+    front_trees applies to "fused" only."""
 
     def __init__(self, model: CascadeModel, exact: bool = False, device="cuda",
-                 front_trees: int = 250, impl: str = "auto"):
-        from cascadeclassifier_tpu_torch.detect.engine import Engine
+                 engine: str = "auto", front_trees: int = 250, impl: str = "auto"):
+        from cascadeclassifier_tpu_torch.detect.engine import Engine, StageEngine
 
+        if engine not in ("auto", "fused", "pallas"):
+            raise ValueError(f"engine must be 'auto', 'fused' or 'pallas', got {engine!r}")
         if exact:
             raise NotImplementedError(
                 "exact (f64 stage sum) mode is not ported yet; use exact=False"
@@ -206,7 +220,13 @@ class TorchDetector:
         self.model = model
         self.exact = exact
         self.packed = PackedCascade.from_model(model)
-        self.engine = Engine(self.packed, self.device, front_trees=front_trees, impl=impl)
+        if engine == "auto":
+            engine = "pallas" if self.packed.has_tilted else "fused"
+        self.engine_name = engine
+        if engine == "fused":
+            self.engine = Engine(self.packed, self.device, front_trees=front_trees, impl=impl)
+        else:
+            self.engine = StageEngine(self.packed, self.device, impl=impl)
 
     def plan_for(self, w, h, scale_factor, min_size, max_size):
         return build_plan(

@@ -1,7 +1,8 @@
-"""The detection pipeline for one frame on one device.
+"""The detection pipelines for one frame on one device.
 
-Counterpart of ``cascadeclassifier_tpu/detect/engine.py::FusedEngine`` in
-its static-front configuration (``FusedEngine._build``), without the TPU
+``Engine`` (``engine="fused"``) is the counterpart of
+``cascadeclassifier_tpu/detect/engine.py::FusedEngine`` in its
+static-front configuration (``FusedEngine._build``), without the TPU
 layout machinery (parity planes, plane split, stitch, tile geometries,
 block nonzero, limb matmuls):
 
@@ -14,7 +15,21 @@ block nonzero, limb matmuls):
   tail     stages n_dense … on the patches              (torch)
 
 n_dense is the first stage at which the trees summed from stage 1 reach
-``front_trees`` (250 by default, as in the JAX package).
+``front_trees`` (250 by default, as in the JAX package). It takes
+upright stump Haar cascades.
+
+``StageEngine`` (``engine="pallas"``) is the counterpart of
+``TPUDetector``'s ``pallas`` branch (``_submit_one`` with
+``_make_collect_fn``) and takes any stump Haar cascade, tilted or not:
+
+  resize   as above                                      (torch)
+  integral as above                                      (kernel 1)
+  tilted   the tilted canvas, for a tilted cascade       (kernel tilted)
+  gate     the variance gate                             (torch)
+  stage    every stage at every alive window, with
+           stage 0's pass mask                           (kernel stage)
+  walk     closed-form OpenCV walk from gate ∧ ¬passed0  (torch)
+  extract  ascending indices of alive ∧ visited (one host sync)
 """
 
 from __future__ import annotations
@@ -35,6 +50,8 @@ from cascadeclassifier_tpu_torch.detect.detector import build_pixel_canvas, resi
 from cascadeclassifier_tpu_torch.detect.front import front
 from cascadeclassifier_tpu_torch.detect.integral import integral
 from cascadeclassifier_tpu_torch.detect.patchify import patchify
+from cascadeclassifier_tpu_torch.detect.stage import stage
+from cascadeclassifier_tpu_torch.detect.tilted import tilted
 
 
 def front_cutover(cascade, front_trees: int) -> int:
@@ -48,20 +65,17 @@ def front_cutover(cascade, front_trees: int) -> int:
     return n_stages
 
 
-class Engine:
-    """Runs the pipeline above. ``impl="ref"`` sends every kernel op to
-    its plain PyTorch twin (on any device); ``"auto"`` dispatches on the
-    tensor's device."""
+class _Pipeline:
+    """What both engines share: the cascade, the device, the kernel
+    dispatch (``impl="ref"`` sends every kernel op to its plain PyTorch
+    twin, on any device; ``"auto"`` dispatches on the tensor's device)
+    and the per-plan device tables."""
 
-    def __init__(self, cascade, device, front_trees: int = 250, impl: str = "auto"):
+    def __init__(self, cascade, device, impl: str = "auto"):
         _build.check_impl(impl)
         self.cascade = cascade
         self.device = torch.device(device)
         self.impl = impl
-        self.n_dense = front_cutover(cascade, front_trees)
-        self.tail_tables = TailTables(
-            cascade, range(self.n_dense, len(cascade.stages)), self.device
-        )
         self.last_counts = {}
         self._plans = {}
 
@@ -73,6 +87,19 @@ class Engine:
             ordinal = torch.cumsum(grid.to(torch.int32), dim=1, dtype=torch.int32)
             self._plans[key] = (resize_tables(plan, self.device), grid, ordinal)
         return self._plans[key]
+
+
+class Engine(_Pipeline):
+    """Runs the static-front pipeline above (upright cascades only)."""
+
+    def __init__(self, cascade, device, front_trees: int = 250, impl: str = "auto"):
+        if cascade.has_tilted:
+            raise ValueError("the fused engine takes upright cascades; use StageEngine")
+        super().__init__(cascade, device, impl)
+        self.n_dense = front_cutover(cascade, front_trees)
+        self.tail_tables = TailTables(
+            cascade, range(self.n_dense, len(cascade.stages)), self.device
+        )
 
     def prep(self, sum2d, sq2d, plan):
         """Gate + stage 0 + the serial-walk visited mask → (inv_nf, alive)."""
@@ -113,6 +140,41 @@ class Engine:
             mark("patchify")
             idx = idx[tail(ps, inv_nf.reshape(-1)[idx], self.tail_tables)]
             mark("tail")
+        return idx.cpu().numpy()
+
+
+class StageEngine(_Pipeline):
+    """Runs the stage pipeline above (any stump Haar cascade)."""
+
+    def detect(self, img, plan, timings: dict | None = None):
+        """As Engine.detect; phases: resize, integral, tilted, gate, stage,
+        walk, extract."""
+        c = self.cascade
+        mark = _PhaseClock(self.device, timings)
+        levels, grid, ordinal = self._plan_tensors(plan)
+        px = build_pixel_canvas(img, plan, levels)
+        mark("resize")
+        sum2d, sq2d = integral(px, impl=self.impl)
+        mark("integral")
+        tilt2d = sum2d  # never read when no tree is tilted
+        if c.has_tilted:
+            # the JAX package's pad: a boundary error moves inward one
+            # column per row, and no block has more than scaled_h + 2 rows
+            pad = int(plan.scaled_h.max()) + 1
+            tilt2d = tilted(px, plan.is_top, pad, impl=self.impl)
+            mark("tilted")
+        gate, inv_nf = dense_variance_gate(sum2d, sq2d, c.win_w, c.win_h, plan.out_h, plan.out_w)
+        mark("gate")
+        # ANDing the static visit grid in only skips windows that the walk
+        # masks out below; stage 0's pass mask is still taken everywhere
+        alive, passed0 = stage(sum2d, tilt2d, inv_nf, gate & grid, c, 0, len(c.stages),
+                               impl=self.impl)
+        mark("stage")
+        visited = parity_visited(gate & ~passed0, grid, ordinal)
+        mark("walk")
+        idx = extract_survivors(alive & visited)
+        self.last_counts = {"raw_windows": int(idx.numel())}
+        mark("extract")
         return idx.cpu().numpy()
 
 

@@ -29,6 +29,8 @@ def front(sum2d, inv_nf, alive, cascade, s0: int, s1: int, impl: str = "auto"):
     out_w = canvas_w − win_w → alive ∧ stages [s0, s1) passed (bool)."""
     if not 0 <= s0 <= s1 <= len(cascade.stages):
         raise ValueError(f"stage range [{s0}, {s1}) out of bounds")
+    if cascade.has_tilted:
+        raise ValueError("front takes upright cascades; tilted ones go to detect/stage.py")
     if _build.use_ref(sum2d, impl):
         return front_ref(sum2d, inv_nf, alive, cascade, s0, s1)
     dev = sum2d.device

@@ -47,6 +47,7 @@ class PyramidPlan:
     row_step2: np.ndarray  # (canvas_h,) bool — level has ystep == 2
     row_maxc: np.ndarray  # (canvas_h,) int32 — last valid window column
     row_scale: np.ndarray  # (canvas_h,) int32 — level id of the row (-1 pad)
+    is_top: np.ndarray  # (canvas_h,) bool — each level's zero row (block_top)
 
     @property
     def out_h(self):
@@ -116,6 +117,8 @@ def build_plan(
         block_top[s] = top
         top += int(scaled_h[s]) + 1
     canvas_h = top
+    is_top = np.zeros(canvas_h, bool)
+    is_top[block_top] = True
 
     row_is_grid = np.zeros(canvas_h, bool)
     row_step2 = np.zeros(canvas_h, bool)
@@ -157,4 +160,5 @@ def build_plan(
         row_step2=row_step2,
         row_maxc=row_maxc,
         row_scale=row_scale,
+        is_top=is_top,
     )

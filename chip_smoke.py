@@ -2,24 +2,41 @@
 
     python3 chip_smoke.py
 
-Drives cascadeclassifier_tpu_torch's main path — multi-scale detection
-with haarcascade_frontalface_alt.xml (22 stages) on 1920x1080 synthetic
-frames, scaleFactor 1.1 — through TorchDetector on cuda:0, and checks it:
+Drives cascadeclassifier_tpu_torch's two detection paths through
+TorchDetector on cuda:0, on 1920x1080 synthetic frames at scaleFactor
+1.1, and checks them. The frontal-face path (haarcascade_frontalface_alt
+.xml, 22 upright stages, engine "fused"):
 
-  (a) build     compile the three CUDA kernels from csrc/ (seconds)
-  (b) integral  kernel 1 vs its plain twin on frame 0's canvas (equal)
-  (c) front     kernel 2 vs its twin over stages 1..n_dense-1, on the
+  (a) build     compile the five CUDA kernels from csrc/, one nvcc per
+                source, all started together (seconds)
+  (b) integral  kernel integral vs its plain twin on frame 0's canvas
+  (c) front     kernel front vs its twin over stages 1..n_dense-1, on the
                 ystep-2 and ystep-1 rows separately; survivors > 0
-  (d) patchify  kernel 3 vs its twin on the front's survivors, at a
-                capacity equal to and larger than the live count
+  (d) patchify  kernel patchify vs its twin on the front's survivors, at
+                a capacity equal to and larger than the live count
   (e) e2e       frames 0-3 through the kernels equal the twin path on
                 the card; frames 0 and 1 equal the committed OpenCV
                 golden at minNeighbors 3 and 0; every kernel launched
-  (f) timing    frames/s over 8 frames after a warm-up; per-kernel time
-                against its twin at the main path's shapes
+  (f) timing    frames/s over 8 frames after a warm-up, phase table
 
-Exits non-zero on any mismatch, and without CUDA. The last line is
-{"ok": true, "device": {...}}.
+The upper-body path (haarcascade_upperbody.xml, 30 stages with tilted
+features, engine "pallas"):
+
+  (g) tilted    kernel tilted vs its twin on frame 0's canvas
+  (h) stage     kernel stage vs its twin over stages 0-29 (alive and
+                stage 0's pass mask), and over the chunk 1-29
+  (i) e2e       frames 0 and 1 through the kernels equal the twin path
+                and the committed OpenCV golden at minNeighbors 3 and 0;
+                tilted and stage launched
+  (j) timing    frames/s over 8 frames after a warm-up, phase table
+
+and last, per kernel at its path's shapes: time against its twin, the
+least time the card could take (bytes over 3.35 TB/s or operations over
+67 TFLOP/s, the H100 SXM's published rates), and one PyTorch call that
+computes the same function where one exists; then each path traced with
+torch.profiler over 4 frames (device time, idle share, launches). Exits
+non-zero on any mismatch, and without CUDA. The last line is
+{"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -35,6 +52,8 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, device memory
+F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 
 
 def fail(msg: str):
@@ -61,6 +80,28 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def bound(nbytes: float, nops: float):
+    """(least ms, what bounds it): each input read and each output written
+    once over the memory rate, or the operations over the f32 rate."""
+    by, op = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
+    return (by, "bytes") if by >= op else (op, "operations")
+
+
+def stage_ops(st) -> int:
+    """Arithmetic operations of one window through one stump-Haar stage:
+    per tree with k rects of nonzero weight, 3k integer corner adds, k
+    conversions, k multiplies, k−1 adds, then ·inv_nf, the compare and
+    the leaf add (6k + 3); plus the stage compare."""
+    k = (st.weights != 0).sum(axis=1)
+    return int((6 * k + 3).sum()) + 1
+
+
+def cascade_ops(cas, s0: int, evaluated) -> int:
+    """Operations of a stage run in which evaluated[i] windows went
+    through stage s0 + i."""
+    return sum(int(n) * stage_ops(cas.stages[s0 + i]) for i, n in enumerate(evaluated))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA device")
@@ -68,10 +109,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from cascadeclassifier_tpu_torch import _build
+    from cascadeclassifier_tpu_torch.detect.dense import dense_variance_gate
     from cascadeclassifier_tpu_torch.detect.detector import TorchDetector, build_pixel_canvas
     from cascadeclassifier_tpu_torch.detect.front import front
     from cascadeclassifier_tpu_torch.detect.integral import integral
     from cascadeclassifier_tpu_torch.detect.patchify import patchify
+    from cascadeclassifier_tpu_torch.detect.stage import stage
+    from cascadeclassifier_tpu_torch.detect.tilted import segments, tilted
     from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml
     from cascadeclassifier_tpu_torch.utils.synth import synth_frame
 
@@ -81,6 +125,10 @@ def main():
     with open(os.path.join(data, "smoke_golden_1080p.json")) as f:
         golden = json.load(f)
     H, W, SF = golden["height"], golden["width"], golden["scale_factor"]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
 
     # (a) build
     t0 = time.perf_counter()
@@ -90,6 +138,7 @@ def main():
 
     det = TorchDetector(model, exact=False, device=dev)
     ref = TorchDetector(model, exact=False, device=dev, impl="ref")
+    check(det.engine_name == "fused", f"frontal face routed to {det.engine_name}")
     eng, cas = det.engine, det.packed
     frames = [synth_frame(k, H, W) for k in range(8)]
     for g in golden["frames"]:
@@ -102,7 +151,7 @@ def main():
     def max_abs_err(a, b):
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
-    errs = {}
+    errs, launches, timed, work = {}, {}, {}, {}
 
     # (b) integral
     px = build_pixel_canvas(img0, plan, levels)
@@ -151,9 +200,10 @@ def main():
     _build.LAUNCHES.clear()
     got = [det.raw_windows(frames[k], SF)[1] for k in range(4)]
     torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
+    counts = dict(_build.LAUNCHES)
     for name in ("integral", "front", "patchify"):
-        check(launches.get(name, 0) > 0, f"kernel {name} was not launched on the main path")
+        check(counts.get(name, 0) > 0, f"kernel {name} was not launched on the main path")
+        launches[name] = counts[name]
     for k in range(4):
         want = ref.raw_windows(frames[k], SF)[1]
         check(np.array_equal(got[k], want), f"frame {k}: kernel path != twin path")
@@ -165,42 +215,126 @@ def main():
                   f"{len(g[f'rects_mn{mn}'])} in the OpenCV golden")
     print(f"(e) e2e: frames 0-3 raw windows {[len(x) for x in got]} equal to the twin path; "
           f"frames 0,1 equal the OpenCV golden at minNeighbors 3 and 0; "
-          f"launches {launches}", flush=True)
+          f"launches {counts}", flush=True)
 
     # (f) timing
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    det.detect_multi_scale_batch(frames[:1], SF, 3)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    det.detect_multi_scale_batch(frames, SF, 3)
-    torch.cuda.synchronize()
-    fps = len(frames) / (time.perf_counter() - t0)
-    print(f"(f) timing: {fps:.2f} frames/s at 1080p over {len(frames)} frames "
-          f"(sf {SF}, minNeighbors 3) on {smi}", flush=True)
-    phases = {}
-    t0 = time.perf_counter()
-    for f in frames:
-        plan_f, idx_f = det.raw_windows(f, SF, timings=phases)
-        tg = time.perf_counter()
-        TorchDetector.group(plan_f, idx_f, 3)
-        phases["group"] = phases.get("group", 0.0) + (time.perf_counter() - tg) * 1e3
-    total = (time.perf_counter() - t0) * 1e3
-    phases["other"] = total - sum(phases.values())
-    print("(f) ms/frame by phase (device synchronized after each): " + ", ".join(
-        f"{k} {v / len(frames):.2f}" for k, v in phases.items()
-    ) + f"; total {total / len(frames):.2f}", flush=True)
+    detection_timing("f", det, frames, SF, smi)
 
     ncells = n_front
-    timed = {
-        "integral": (lambda: integral(px), lambda: integral(px, impl="ref")),
-        "front": (lambda: front(s_k, inv_nf, alive0, cas, 1, eng.n_dense),
-                  lambda: front(s_k, inv_nf, alive0, cas, 1, eng.n_dense, impl="ref")),
-        "patchify": (lambda: patchify(s_k, r, c, ncells, cas.win_w, cas.win_h),
-                     lambda: patchify(s_k, r, c, ncells, cas.win_w, cas.win_h, impl="ref")),
-    }
+    hw = px.numel()
+    n_win = plan.out_h * plan.out_w
+    front_eval = [int(alive0.sum())] + [
+        int(front(s_k, inv_nf, alive0, cas, 1, s).sum()) for s in range(2, eng.n_dense)
+    ]
+    flat = ((r.long() * plan.canvas_w + c.long())[:, None]
+            + torch.arange(cas.win_h + 1, device=dev).repeat_interleave(cas.win_w + 1)
+            * plan.canvas_w
+            + torch.arange(cas.win_w + 1, device=dev).repeat(cas.win_h + 1)).reshape(-1)
+    timed["integral"] = (lambda: integral(px), lambda: integral(px, impl="ref"), None, 3)
+    timed["front"] = (lambda: front(s_k, inv_nf, alive0, cas, 1, eng.n_dense),
+                      lambda: front(s_k, inv_nf, alive0, cas, 1, eng.n_dense, impl="ref"),
+                      None, 3)
+    timed["patchify"] = (lambda: patchify(s_k, r, c, ncells, cas.win_w, cas.win_h),
+                         lambda: patchify(s_k, r, c, ncells, cas.win_w, cas.win_h, impl="ref"),
+                         lambda: s_k.reshape(-1)[flat], 3)
+    work["integral"] = bound(3 * 4 * hw, 5 * hw)
+    work["front"] = bound(4 * hw + 6 * n_win, cascade_ops(cas, 1, front_eval))
+    work["patchify"] = bound(2 * 4 * flat.numel() + 2 * 4 * ncells, 0)
+
+    # ------------------------------------------------------------------
+    # the upper-body path: tilted features through the stage engine
+    body = read_cascade_xml(os.path.join(data, "haarcascade_upperbody.xml"))
+    with open(os.path.join(data, "smoke_golden_upperbody_1080p.json")) as f:
+        golden_ub = json.load(f)
+    check((golden_ub["height"], golden_ub["width"], golden_ub["scale_factor"]) == (H, W, SF),
+          "the upper-body golden's geometry differs")
+    for g in golden_ub["frames"]:
+        sha = hashlib.sha256(frames[g["k"]].tobytes()).hexdigest()
+        check(sha == g["sha256"], f"synth frame {g['k']} differs from the upper-body golden's")
+    det_b = TorchDetector(body, exact=False, device=dev)
+    ref_b = TorchDetector(body, exact=False, device=dev, impl="ref")
+    check(det_b.engine_name == "pallas", f"upper body routed to {det_b.engine_name}")
+    eng_b, cas_b = det_b.engine, det_b.packed
+    n_st = len(cas_b.stages)
+    plan_b = det_b.plan_for(W, H, SF, None, None)
+    levels_b, grid_b, _ = eng_b._plan_tensors(plan_b)
+    pad = int(plan_b.scaled_h.max()) + 1
+
+    # (g) tilted
+    px_b = build_pixel_canvas(img0, plan_b, levels_b)
+    t_k = tilted(px_b, plan_b.is_top, pad)
+    t_r = tilted(px_b, plan_b.is_top, pad, impl="ref")
+    torch.cuda.synchronize()
+    errs["tilted"] = max_abs_err(t_k, t_r)
+    check(torch.equal(t_k, t_r), "tilted kernel != twin")
+    print(f"(g) tilted: canvas {tuple(px_b.shape)}, {len(plan_b.scales)} blocks, equal to the "
+          f"twin (tolerance: exact, max_abs_err {errs['tilted']})", flush=True)
+
+    # (h) stage
+    sb, qb = integral(px_b)
+    gate_b, inv_b = dense_variance_gate(sb, qb, cas_b.win_w, cas_b.win_h,
+                                        plan_b.out_h, plan_b.out_w)
+    alive_b = gate_b & grid_b
+    a_k, p0_k = stage(sb, t_k, inv_b, alive_b, cas_b, 0, n_st)
+    a_r, p0_r = stage(sb, t_k, inv_b, alive_b, cas_b, 0, n_st, impl="ref")
+    torch.cuda.synchronize()
+    errs["stage"] = max(max_abs_err(a_k, a_r), max_abs_err(p0_k, p0_r))
+    check(torch.equal(a_k, a_r), "stage kernel != twin (alive, stages 0-29)")
+    check(torch.equal(p0_k, p0_r), "stage kernel != twin (passed0)")
+    a1 = alive_b & p0_k
+    c_k, cp_k = stage(sb, t_k, inv_b, a1, cas_b, 1, n_st)
+    c_r, cp_r = stage(sb, t_k, inv_b, a1, cas_b, 1, n_st, impl="ref")
+    torch.cuda.synchronize()
+    errs["stage"] = max(errs["stage"], max_abs_err(c_k, c_r))
+    check(torch.equal(c_k, c_r) and torch.equal(cp_k, cp_r), "stage kernel != twin (1-29)")
+    check(torch.equal(c_k, a_k) and not cp_k.any(), "stages 1-29 after stage 0 != stages 0-29")
+    stage_eval = [plan_b.out_h * plan_b.out_w] + [
+        int(stage(sb, t_k, inv_b, alive_b, cas_b, 0, s)[0].sum()) for s in range(1, n_st)
+    ]
+    n0, n_last = stage_eval[1], int(a_k.sum())
+    print(f"(h) stage: alive and passed0 over stages 0-{n_st - 1}, and alive over the chunk "
+          f"1-{n_st - 1}, equal to the twin (tolerance: exact); {int(alive_b.sum())} windows "
+          f"in, {n0} after stage 0, {n_last} after stage {n_st - 1}", flush=True)
+    check(n0 > 0, "no survivors after stage 0")
+
+    # (i) end to end on the upper-body path
+    _build.LAUNCHES.clear()
+    got_b = {g["k"]: det_b.raw_windows(frames[g["k"]], SF)[1] for g in golden_ub["frames"]}
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    for name in ("integral", "tilted", "stage"):
+        check(counts.get(name, 0) > 0, f"kernel {name} was not launched on the upper-body path")
+    check("front" not in counts, "the upper-body path launched the front kernel")
+    launches["tilted"], launches["stage"] = counts["tilted"], counts["stage"]
+    for k, idx_k in got_b.items():
+        check(np.array_equal(idx_k, ref_b.raw_windows(frames[k], SF)[1]),
+              f"upper body frame {k}: kernel path != twin path")
+    for g in golden_ub["frames"]:
+        for mn in (3, 0):
+            ours = sorted(map(list, TorchDetector.group(plan_b, got_b[g["k"]], mn).tolist()))
+            check(ours == g[f"rects_mn{mn}"],
+                  f"upper body frame {g['k']} minNeighbors {mn}: {len(ours)} rects vs "
+                  f"{len(g[f'rects_mn{mn}'])} in the OpenCV golden")
+    print(f"(i) e2e: upper-body frames 0,1 raw windows {[len(x) for x in got_b.values()]} "
+          f"equal to the twin path and the OpenCV golden at minNeighbors 3 and 0 "
+          f"({[len(g['rects_mn3']) for g in golden_ub['frames']]} and "
+          f"{[len(g['rects_mn0']) for g in golden_ub['frames']]} rects); launches {counts}",
+          flush=True)
+
+    # (j) timing
+    detection_timing("j", det_b, frames, SF, smi)
+    timed["tilted"] = (lambda: tilted(px_b, plan_b.is_top, pad),
+                       lambda: tilted(px_b, plan_b.is_top, pad, impl="ref"), None, 1)
+    timed["stage"] = (lambda: stage(sb, t_k, inv_b, alive_b, cas_b, 0, n_st),
+                      lambda: stage(sb, t_k, inv_b, alive_b, cas_b, 0, n_st, impl="ref"),
+                      None, 1)
+    seg = segments(plan_b.is_top, pad)
+    # per padded cell: two neighbours, T[y-2] and two pixels
+    tilted_cells = int(((seg[:, 1] - seg[:, 0]) * (px_b.shape[1] + 2 * seg[:, 2])).sum())
+    work["tilted"] = bound(2 * 4 * px_b.numel(), 5 * tilted_cells)
+    work["stage"] = bound(2 * 4 * sb.numel() + 7 * plan_b.out_h * plan_b.out_w,
+                          cascade_ops(cas_b, 0, stage_eval))
+
     meta = {
         "integral": ("cascadeclassifier_tpu_torch/csrc/integral.cu",
                      "cascadeclassifier_tpu/detect/pallas_integral.py:50"),
@@ -209,23 +343,92 @@ def main():
                   "cascadeclassifier_tpu/detect/pallas_front.py:75"),
         "patchify": ("cascadeclassifier_tpu_torch/csrc/patchify.cu",
                      "cascadeclassifier_tpu/detect/compact.py:675"),
+        "tilted": ("cascadeclassifier_tpu_torch/csrc/tilted.cu",
+                   "cascadeclassifier_tpu/detect/dense.py:343 (XLA scan, not Pallas)"),
+        "stage": ("cascadeclassifier_tpu_torch/csrc/stage.cu",
+                  "cascadeclassifier_tpu/detect/pallas_stage.py:92"),
     }
     kernels = []
-    for name, (fk, fr) in timed.items():
+    for name, (fk, fr, flib, plain_reps) in timed.items():
         ms = cuda_ms(fk, 20)
-        plain_ms = cuda_ms(fr, 3)
+        plain_ms = cuda_ms(fr, plain_reps)
+        library_ms = cuda_ms(flib, 20) if flib is not None else None
+        bound_ms, bound_by = work[name]
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches[name],
-            "max_abs_err": errs[name], "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         })
-        print(f"(f) {name}: kernel {ms:.3f} ms, plain twin {plain_ms:.3f} ms", flush=True)
+        print(f"kernel {name}: {ms:.4f} ms, plain twin {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), library call "
+              f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}", flush=True)
+    for name, d in (("frontal face", det), ("upper body", det_b)):
+        profile(name, d, frames[:4], SF)
     print(json.dumps({"kernels": kernels}))
     print(f"gpu: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}), flush=True)
+
+
+def detection_timing(phase: str, det, frames, sf, smi):
+    """frames/s over the frames after one warm-up frame, then the phase
+    table (device synchronized after each phase) over the same frames."""
+    from cascadeclassifier_tpu_torch.detect.detector import TorchDetector
+
+    det.detect_multi_scale_batch(frames[:1], sf, 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    det.detect_multi_scale_batch(frames, sf, 3)
+    torch.cuda.synchronize()
+    fps = len(frames) / (time.perf_counter() - t0)
+    print(f"({phase}) timing: {fps:.2f} frames/s at 1080p over {len(frames)} frames "
+          f"(engine {det.engine_name}, sf {sf}, minNeighbors 3) on {smi}", flush=True)
+    phases = {}
+    t0 = time.perf_counter()
+    for f in frames:
+        plan_f, idx_f = det.raw_windows(f, sf, timings=phases)
+        tg = time.perf_counter()
+        TorchDetector.group(plan_f, idx_f, 3)
+        phases["group"] = phases.get("group", 0.0) + (time.perf_counter() - tg) * 1e3
+    total = (time.perf_counter() - t0) * 1e3
+    phases["other"] = total - sum(phases.values())
+    print(f"({phase}) ms/frame by phase (device synchronized after each): " + ", ".join(
+        f"{k} {v / len(frames):.2f}" for k, v in phases.items()
+    ) + f"; total {total / len(frames):.2f}", flush=True)
+
+
+def profile(name: str, det, frames, sf):
+    """torch.profiler over detect_multi_scale on the frames (after one
+    untraced warm-up frame): device kernel time, wall time traced and
+    untraced, kernel launches and stream synchronizations per frame."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    det.detect_multi_scale_batch(frames[:1], sf, 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    det.detect_multi_scale_batch(frames, sf, 3)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        det.detect_multi_scale_batch(frames, sf, 3)
+        torch.cuda.synchronize()
+        traced = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.device_time for e in events) / 1e3
+    launches = sum(1 for e in prof.events() if e.name in ("cudaLaunchKernel", "cuLaunchKernel"))
+    syncs = sum(1 for e in prof.events() if "Synchronize" in e.name)
+    n = len(frames)
+    print(f"profile {name}: device kernel time {device_ms / n:.2f} ms/frame, wall "
+          f"{wall / n:.2f} ms/frame untraced ({traced / n:.2f} traced), device idle "
+          f"{100 * (1 - device_ms / wall):.1f} % of the untraced wall; "
+          f"{launches / n:.0f} kernel launches and {syncs / n:.0f} synchronizations "
+          f"a frame", flush=True)
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=8), flush=True)
 
 
 if __name__ == "__main__":

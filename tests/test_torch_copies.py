@@ -55,6 +55,7 @@ def _assert_same(a, b, path="model"):
     "haarcascade_frontalface_alt.xml",
     "haarcascade_eye.xml",
     "haarcascade_frontalface_alt_tree.xml",
+    "haarcascade_upperbody.xml",
 ])
 def test_read_cascade_xml_matches_original(name):
     path = os.path.join(CASCADES, name)
@@ -68,6 +69,17 @@ def test_vendored_cascade_is_the_opencv_file():
         vendored = f.read()
     assert b"Intel License Agreement" in vendored
     with open(os.path.join(CASCADES, "haarcascade_frontalface_alt.xml"), "rb") as f:
+        assert vendored == f.read()
+
+
+def test_vendored_upperbody_cascade_is_the_opencv_file():
+    with open(os.path.join(DATA, "haarcascade_upperbody.xml"), "rb") as f:
+        vendored = f.read()
+    assert b"Hannes Kruppa and Bernt Schiele" in vendored  # the license header
+    src = os.path.join(CASCADES, "haarcascade_upperbody.xml")
+    if not os.path.exists(src):
+        pytest.skip("haarcascade_upperbody.xml not installed")
+    with open(src, "rb") as f:
         assert vendored == f.read()
 
 
@@ -132,6 +144,17 @@ def test_synth_frames_match_the_golden():
         assert len(g["rects_mn3"]) > 0 and len(g["rects_mn0"]) > len(g["rects_mn3"])
 
 
+def test_upperbody_golden_frames_and_cascade():
+    with open(os.path.join(DATA, "smoke_golden_upperbody_1080p.json")) as f:
+        golden = json.load(f)
+    assert golden["cascade"] == "haarcascade_upperbody.xml"
+    assert [g["k"] for g in golden["frames"]] == [0, 1]
+    for g in golden["frames"]:
+        frame = synth_frame(g["k"], golden["height"], golden["width"])
+        assert hashlib.sha256(frame.tobytes()).hexdigest() == g["sha256"]
+        assert len(g["rects_mn3"]) > 0 and len(g["rects_mn0"]) > len(g["rects_mn3"])
+
+
 def test_port_imports_without_jax():
     """With jax made unimportable, every module of the port and every
     import of chip_smoke.py still load."""
@@ -149,6 +172,8 @@ def test_port_imports_without_jax():
         "        mod = importlib.import_module(node.module)\n"
         "        for a in node.names: getattr(mod, a.name)\n"
         "import chip_smoke\n"
+        "for m in ('detect.stage', 'detect.tilted', 'detect.engine', 'utils.golden'):\n"
+        "    assert 'cascadeclassifier_tpu_torch.' + m in sys.modules, m\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'cascadeclassifier_tpu.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('OK')\n"

@@ -1,6 +1,7 @@
 """The PyTorch port on the CPU against the independent OpenCV C++ runtime
 (oracle/detect_oracle): the full cascade, the walk's visit set, knife-edge
-textures, minSize, and the variance gate."""
+textures, minSize, the variance gate, and the full tilted upper-body
+cascade through the stage engine."""
 
 import dataclasses
 import os
@@ -19,13 +20,16 @@ from cascadeclassifier_tpu.models.xml_io import (  # noqa: E402
 )
 from cascadeclassifier_tpu_torch.detect.detector import TorchDetector  # noqa: E402
 from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml  # noqa: E402
+from cascadeclassifier_tpu_torch.utils.synth import synth_frame  # noqa: E402
 
 from .utils_synth import face_blob_image  # noqa: E402
 
-HAAR_ALT = os.path.join(  # the port's vendored copy of OpenCV's file
+DATA = os.path.join(  # the port's vendored copies of OpenCV's files
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "cascadeclassifier_tpu_torch", "data", "haarcascade_frontalface_alt.xml",
+    "cascadeclassifier_tpu_torch", "data",
 )
+HAAR_ALT = os.path.join(DATA, "haarcascade_frontalface_alt.xml")
+UPPERBODY = os.path.join(DATA, "haarcascade_upperbody.xml")
 
 
 def _sorted(rects):
@@ -81,6 +85,21 @@ def test_visit_set_matches_oracle(oracle_bin, tmp_path, w, h):
     ref = _oracle(oracle_bin, xml, img, tmp_path, 1.1, 0)
     assert len(ref) > 100
     assert _sorted(det.detect_multi_scale(img, 1.1, 0)) == ref
+
+
+def test_full_tilted_cascade_matches_opencv_oracle(oracle_bin, tmp_path):
+    """haarcascade_upperbody.xml (30 stages, 474 tilted trees) at 320x240
+    through TorchDetector's stage engine ("pallas", chosen by "auto"), on
+    the port's synth frame 0 (the face blobs fire no upper body)."""
+    img = synth_frame(0, 240, 320)
+    det = TorchDetector(read_cascade_xml(UPPERBODY), exact=False, device="cpu")
+    assert det.engine_name == "pallas"
+    plan, idx = det.raw_windows(img, 1.1)
+    for mn in (0, 3):
+        ref = _oracle(oracle_bin, UPPERBODY, img, tmp_path, 1.1, mn)
+        if mn == 0:
+            assert len(ref) > 0
+        assert _sorted(TorchDetector.group(plan, idx, mn)) == ref, f"minNeighbors {mn}"
 
 
 def test_random_textures_and_min_size_match_oracle(oracle_bin, tmp_path):

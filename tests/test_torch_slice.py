@@ -1,5 +1,6 @@
-"""The PyTorch port's whole detection slice against the JAX package's fused
-engine (interpret mode) and XLA engine."""
+"""The PyTorch port's whole detection slices against the JAX package: the
+fused engine (interpret mode) and XLA engine for the frontal face, the
+pallas engine (interpret mode) and XLA engine for the tilted upper body."""
 
 import dataclasses
 import os
@@ -21,10 +22,12 @@ from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml  # noqa: 
 
 from .utils_synth import face_blob_image  # noqa: E402
 
-HAAR_ALT = os.path.join(  # the port's vendored copy of OpenCV's file
+DATA = os.path.join(  # the port's vendored copies of OpenCV's files
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "cascadeclassifier_tpu_torch", "data", "haarcascade_frontalface_alt.xml",
+    "cascadeclassifier_tpu_torch", "data",
 )
+HAAR_ALT = os.path.join(DATA, "haarcascade_frontalface_alt.xml")
+UPPERBODY = os.path.join(DATA, "haarcascade_upperbody.xml")
 
 
 def _sorted(rects):
@@ -63,3 +66,41 @@ def test_detector_refuses_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             TorchDetector(m, device="cuda")
+
+
+def test_tilted_slice_matches_jax_pallas_and_xla_engines():
+    """The upper body cut to its first 3 stages (tilted trees in each),
+    sf 1.2, minNeighbors 0 — the raw windows through the stage engine."""
+    img = face_blob_image(200, 150, n=4, seed=7)
+    jm = jread_cascade_xml(UPPERBODY)
+    jm3 = dataclasses.replace(jm, stages=list(jm.stages[:3]))
+    want_pallas = _sorted(
+        TPUDetector(jm3, exact=False, engine="pallas", pallas_interpret=True)
+        .detect_multi_scale(img, 1.2, 0)
+    )
+    want_xla = _sorted(
+        TPUDetector(jm3, exact=False, engine="xla").detect_multi_scale(img, 1.2, 0)
+    )
+    m = read_cascade_xml(UPPERBODY)
+    m3 = dataclasses.replace(m, stages=list(m.stages[:3]))
+    det = TorchDetector(m3, exact=False, device="cpu", engine="pallas")
+    got = _sorted(det.detect_multi_scale(img, 1.2, 0))
+    assert det.packed.has_tilted
+    assert len(got) > 0
+    assert got == want_pallas == want_xla
+
+
+def test_engine_routing():
+    """"auto" takes "fused" for an upright cascade and "pallas" for a
+    tilted one; "fused" refuses a tilted cascade; "pallas" takes both."""
+    face = read_cascade_xml(HAAR_ALT)
+    body = read_cascade_xml(UPPERBODY)
+    assert TorchDetector(face, device="cpu").engine_name == "fused"
+    assert TorchDetector(body, device="cpu").engine_name == "pallas"
+    assert TorchDetector(face, device="cpu", engine="pallas").engine_name == "pallas"
+    with pytest.raises(ValueError):
+        TorchDetector(body, device="cpu", engine="fused")
+    with pytest.raises(ValueError):
+        TorchDetector(body, device="cpu", engine="xla")
+    with pytest.raises(NotImplementedError):
+        TorchDetector(body, exact=True, device="cpu")
