@@ -29,7 +29,8 @@ import tempfile
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("integral.cu", "front.cu", "patchify.cu", "tilted.cu", "stage.cu")
+SOURCES = ("integral.cu", "front.cu", "patchify.cu", "tilted.cu", "stage.cu",
+           "packed_front.cu")
 NVCC_FLAGS = (
     "-O3",
     "--fmad=false",
@@ -50,6 +51,11 @@ _SIGNATURES = {
     # rects, weights, tree params, stage_start, stage_thr, s0, s1, stream
     "cct_front": [_P, _I, _P, _P, _P, _I, _I,
                   _P, _P, _P, _P, _P, _I, _I, _P],
+    # canvas, canvas_w, inv, alive_in, alive_out, out_h, out_w, blk,
+    # nblk (device), nb_cap, rects, weights, tree params, stage_start,
+    # stage_thr, s0, s1, stream
+    "cct_packed_front": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I,
+                         _P, _P, _P, _P, _P, _I, _I, _P],
     # canvas, canvas_h, canvas_w, r, c, n, cnt, ph, pw, out, stream
     "cct_patchify": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
     # px, out, h, w, segments, n segments, padded width, stream

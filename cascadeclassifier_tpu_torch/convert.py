@@ -38,11 +38,9 @@ def from_jax_packed(packed) -> PackedCascade:
 
 
 def plan_from_jax(plan) -> PyramidPlan:
-    """An unpacked ``cascadeclassifier_tpu.detect.pyramid.PyramidPlan`` →
-    the port's ``PyramidPlan`` (the fields the port uses, ``is_top``
-    among them)."""
-    if plan.packed:
-        raise ValueError("the port uses the unpacked plan (pack_band=False)")
+    """A ``cascadeclassifier_tpu.detect.pyramid.PyramidPlan``, plain stack
+    or shelf-packed → the port's ``PyramidPlan`` (the fields the port
+    uses, ``is_top`` and the shelf-packed fields among them)."""
     return PyramidPlan(
         **{f: getattr(plan, f) for f in PyramidPlan.__dataclass_fields__}
     )

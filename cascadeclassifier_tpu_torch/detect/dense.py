@@ -179,7 +179,9 @@ def canvas_tilted(px, is_top, pad: int):
 def static_visit_grid(plan) -> np.ndarray:
     """(out_h, out_w) bool — the superset of window positions the OpenCV
     x-walk can visit: grid rows (ystep-aware), columns within the level
-    bound, even columns where ystep == 2."""
+    bound, even columns where ystep == 2 (a shelf-packed plan's grid2d)."""
+    if plan.packed:
+        return plan.grid2d
     out_h, out_w = plan.out_h, plan.out_w
     cols = np.arange(out_w)
     return (
@@ -189,7 +191,7 @@ def static_visit_grid(plan) -> np.ndarray:
     )
 
 
-def parity_visited(m0, on, ordinal=None):
+def parity_visited(m0, on, ordinal=None, reset=None):
     """Closed form of OpenCV's serial x-walk with skip-after-reject.
 
     Per row, over its sequence of `on` columns c_1 < c_2 < …, the walk is
@@ -198,10 +200,17 @@ def parity_visited(m0, on, ordinal=None):
     with lastFalse_k the ordinal of the last on-column before k where the
     skip trigger m0 was False (an exclusive prefix max, via cummax).
 
-    m0, on: (H, W) bool; ordinal: optional inclusive int32 cumsum of on."""
+    m0, on: (H, W) bool; ordinal: optional inclusive int32 cumsum of on;
+    reset: optional (H, W) bool, columns that restart the walk as a fresh
+    row would (the gaps between levels that share a shelf-packed row): a
+    reset column carries the ordinal of the on-column before it, which
+    makes the next on-column visited."""
     if ordinal is None:
         ordinal = torch.cumsum(on.to(torch.int32), dim=1, dtype=torch.int32)
-    marker = torch.where(on & ~m0, ordinal, torch.zeros_like(ordinal))
+    zero = torch.zeros_like(ordinal)
+    marker = torch.where(on & ~m0, ordinal, zero)
+    if reset is not None:
+        marker = torch.maximum(marker, torch.where(reset, ordinal, zero))
     lastf = torch.cummax(marker, dim=1).values
     lastf = torch.cat(
         [torch.zeros_like(lastf[:, :1]), lastf[:, :-1]], dim=1

@@ -131,8 +131,9 @@ class PackedCascade:
 
 
 def resize_tables(plan: PyramidPlan, device) -> list:
-    """Per level: (block_top, h_s, w_s, y0, y1, cy, x0, x1, cx) with the
-    INTER_LINEAR_EXACT source indices and 8-bit coefficients on device."""
+    """Per level: (block_top, block_left, h_s, w_s, y0, y1, cy, x0, x1,
+    cx) with the INTER_LINEAR_EXACT source indices and 8-bit coefficients
+    on device."""
     levels = []
     for s in range(len(plan.scales)):
         h_s, w_s = int(plan.scaled_h[s]), int(plan.scaled_w[s])
@@ -143,7 +144,7 @@ def resize_tables(plan: PyramidPlan, device) -> list:
             return torch.as_tensor(a, dtype=torch.int64, device=device)
 
         levels.append((
-            int(plan.block_top[s]), h_s, w_s,
+            int(plan.block_top[s]), int(plan.block_left[s]), h_s, w_s,
             dev(ys), dev(np.minimum(ys + 1, plan.img_h - 1)), dev(cys).to(torch.int32),
             dev(xs), dev(np.minimum(xs + 1, plan.img_w - 1)), dev(cxs).to(torch.int32),
         ))
@@ -152,17 +153,17 @@ def resize_tables(plan: PyramidPlan, device) -> list:
 
 def build_pixel_canvas(img, plan: PyramidPlan, levels) -> torch.Tensor:
     """u8 frame (H, W) → (canvas_h, canvas_w) int32 pixel canvas: each
-    level resized exactly, at (block_top + 1, 1) of its block; the block's
-    top row and the first column stay zero.
+    level resized exactly, at (block_top + 1, block_left + 1); the block's
+    top row and first column stay zero.
 
     In int32: H = (256−cy)·p[y0] + cy·p[y1] (≤ 65280), then
     v = (256−cx)·H[x0] + cx·H[x1] (< 2^24), pixel = min((v + 2^15) >> 16, 255)."""
     p = img.to(torch.int32)
     px = torch.zeros((plan.canvas_h, plan.canvas_w), dtype=torch.int32, device=img.device)
-    for (top, h_s, w_s, y0, y1, cy, x0, x1, cx) in levels:
+    for (top, left, h_s, w_s, y0, y1, cy, x0, x1, cx) in levels:
         rows = (256 - cy)[:, None] * p[y0] + cy[:, None] * p[y1]
         v = (256 - cx) * rows[:, x0] + cx * rows[:, x1]
-        px[top + 1 : top + 1 + h_s, 1 : 1 + w_s] = torch.clamp_max((v + (1 << 15)) >> 16, 255)
+        px[top + 1 : top + 1 + h_s, left + 1 : left + 1 + w_s] = torch.clamp_max((v + (1 << 15)) >> 16, 255)
     return px
 
 
@@ -172,16 +173,19 @@ def positions_to_rects(plan: PyramidPlan, sel: np.ndarray) -> np.ndarray:
     The OpenCV invoker maps window coords with FLOAT32 arithmetic:
     cvRound(x·scalingFactor) with a float scalingFactor (50·1.21f is
     exactly 60.5f and rounds to even 60). Candidates at the coarsest level
-    may overhang the image; clipping happens after grouping."""
+    may overhang the image; clipping happens after grouping. A
+    shelf-packed plan is decoded through its level map and each level's
+    (block_top, block_left)."""
     sel = np.asarray(sel, np.int64)
     if sel.size == 0:
         return np.zeros((0, 4), np.int32)
     r = sel // plan.out_w
     c = sel % plan.out_w
-    s = plan.row_scale[r]
+    s = plan.lvl2d[r, c].astype(np.int32) if plan.packed else plan.row_scale[r]
     if (s < 0).any():
         raise ValueError("a window position lies outside every pyramid level")
     y = r - plan.block_top[s]
+    c = c - plan.block_left[s]
     f = plan.scales[s].astype(np.float32)
     x_img = np.rint(c.astype(np.float32) * f).astype(np.int32)
     y_img = np.rint(y.astype(np.float32) * f).astype(np.int32)
@@ -199,10 +203,18 @@ class TorchDetector:
     engine, as the JAX package names them: "fused" (``Engine``, upright
     stump Haar), "pallas" (``StageEngine``, any stump Haar cascade), or
     "auto" ("fused" for an upright cascade, "pallas" for a tilted one).
-    front_trees applies to "fused" only."""
+    front_trees applies to "fused" only.
+
+    pack_band: the shelf-packed pyramid plan (``build_plan(pack_band=
+    True)``); None takes it for "fused" and the plain stack for "pallas",
+    whose tilted canvas resets per block top and cannot hold levels side
+    by side. packed_front ("fused" only): run the front over the list of
+    live 16x512 blocks (``detect/packed_front.py``) instead of the whole
+    canvas. The JAX package's CCTPU_PACK_BAND and CCTPU_PACKED_FRONT."""
 
     def __init__(self, model: CascadeModel, exact: bool = False, device="cuda",
-                 engine: str = "auto", front_trees: int = 250, impl: str = "auto"):
+                 engine: str = "auto", front_trees: int = 250, impl: str = "auto",
+                 pack_band: bool | None = None, packed_front: bool = False):
         from cascadeclassifier_tpu_torch.detect.engine import Engine, StageEngine
 
         if engine not in ("auto", "fused", "pallas"):
@@ -223,8 +235,14 @@ class TorchDetector:
         if engine == "auto":
             engine = "pallas" if self.packed.has_tilted else "fused"
         self.engine_name = engine
+        self.pack_band = engine == "fused" if pack_band is None else bool(pack_band)
+        if engine == "pallas" and self.pack_band:
+            raise ValueError("engine 'pallas' takes the plain stack only (pack_band=False)")
+        if engine == "pallas" and packed_front:
+            raise ValueError("packed_front applies to engine 'fused' only")
         if engine == "fused":
-            self.engine = Engine(self.packed, self.device, front_trees=front_trees, impl=impl)
+            self.engine = Engine(self.packed, self.device, front_trees=front_trees, impl=impl,
+                                 packed_front=packed_front)
         else:
             self.engine = StageEngine(self.packed, self.device, impl=impl)
 
@@ -233,6 +251,7 @@ class TorchDetector:
             w, h, self.packed.win_w, self.packed.win_h, scale_factor,
             tuple(min_size) if min_size else None,
             tuple(max_size) if max_size else None,
+            pack_band=self.pack_band,
         )
 
     def raw_windows(self, img: np.ndarray, scale_factor: float = 1.1,

@@ -14,9 +14,18 @@ block nonzero, limb matmuls):
   patchify the survivors' integral patches              (kernel 3)
   tail     stages n_dense … on the patches              (torch)
 
+With ``packed_front=True`` (the JAX package's CCTPU_PACKED_FRONT=1) the
+front phase becomes
+
+  blocks        the list of live 16x512 mask blocks, on the device (torch)
+  packed_front  stages 1 … n_dense−1 over the listed blocks (kernel
+                packed_front)
+
 n_dense is the first stage at which the trees summed from stage 1 reach
 ``front_trees`` (250 by default, as in the JAX package). It takes
-upright stump Haar cascades.
+upright stump Haar cascades, on the plain or the shelf-packed plan; on
+the latter the walk restarts at the gaps between levels that share a
+canvas row.
 
 ``StageEngine`` (``engine="pallas"``) is the counterpart of
 ``TPUDetector``'s ``pallas`` branch (``_submit_one`` with
@@ -49,6 +58,7 @@ from cascadeclassifier_tpu_torch.detect.dense import (
 from cascadeclassifier_tpu_torch.detect.detector import build_pixel_canvas, resize_tables
 from cascadeclassifier_tpu_torch.detect.front import front
 from cascadeclassifier_tpu_torch.detect.integral import integral
+from cascadeclassifier_tpu_torch.detect.packed_front import live_block_list, packed_front
 from cascadeclassifier_tpu_torch.detect.patchify import patchify
 from cascadeclassifier_tpu_torch.detect.stage import stage
 from cascadeclassifier_tpu_torch.detect.tilted import tilted
@@ -80,22 +90,32 @@ class _Pipeline:
         self._plans = {}
 
     def _plan_tensors(self, plan):
+        """(resize tables, visit grid, its ordinal, walk resets or None)."""
         key = (plan.img_w, plan.img_h, plan.canvas_h, plan.canvas_w,
-               tuple(plan.scaled_w))
+               tuple(plan.scaled_w), plan.packed)
         if key not in self._plans:
-            grid = torch.as_tensor(static_visit_grid(plan), device=self.device)
+            grid_np = static_visit_grid(plan)
+            grid = torch.as_tensor(grid_np, device=self.device)
             ordinal = torch.cumsum(grid.to(torch.int32), dim=1, dtype=torch.int32)
-            self._plans[key] = (resize_tables(plan, self.device), grid, ordinal)
+            reset = None
+            if plan.packed:
+                # band rows only: on ystep-2 rows the odd columns are off
+                # the grid by design and must not restart the walk
+                band = ~plan.row_is_plane[: plan.out_h, None]
+                reset = torch.as_tensor(band & ~grid_np, device=self.device)
+            self._plans[key] = (resize_tables(plan, self.device), grid, ordinal, reset)
         return self._plans[key]
 
 
 class Engine(_Pipeline):
     """Runs the static-front pipeline above (upright cascades only)."""
 
-    def __init__(self, cascade, device, front_trees: int = 250, impl: str = "auto"):
+    def __init__(self, cascade, device, front_trees: int = 250, impl: str = "auto",
+                 packed_front: bool = False):
         if cascade.has_tilted:
             raise ValueError("the fused engine takes upright cascades; use StageEngine")
         super().__init__(cascade, device, impl)
+        self.packed_front = packed_front
         self.n_dense = front_cutover(cascade, front_trees)
         self.tail_tables = TailTables(
             cascade, range(self.n_dense, len(cascade.stages)), self.device
@@ -103,12 +123,12 @@ class Engine(_Pipeline):
 
     def prep(self, sum2d, sq2d, plan):
         """Gate + stage 0 + the serial-walk visited mask → (inv_nf, alive)."""
-        _, grid, ordinal = self._plan_tensors(plan)
+        _, grid, ordinal, reset = self._plan_tensors(plan)
         c = self.cascade
         out_h, out_w = plan.out_h, plan.out_w
         gate, inv_nf = dense_variance_gate(sum2d, sq2d, c.win_w, c.win_h, out_h, out_w)
         passed0 = stage_pass(sum2d, c.stages[0], out_h, out_w, inv_nf)
-        visited = parity_visited(gate & ~passed0, grid, ordinal)
+        visited = parity_visited(gate & ~passed0, grid, ordinal, reset)
         return inv_nf, gate & grid & passed0 & visited
 
     def detect(self, img, plan, timings: dict | None = None):
@@ -117,18 +137,26 @@ class Engine(_Pipeline):
 
         timings: optional dict; when given, the device is synchronized
         after each phase and the phase's wall milliseconds are added under
-        its name (resize, integral, prep, front, extract, patchify, tail)."""
+        its name (resize, integral, prep, front or blocks and packed_front,
+        extract, patchify, tail)."""
         c = self.cascade
         mark = _PhaseClock(self.device, timings)
-        levels, _, _ = self._plan_tensors(plan)
+        levels = self._plan_tensors(plan)[0]
         px = build_pixel_canvas(img, plan, levels)
         mark("resize")
         sum2d, sq2d = integral(px, impl=self.impl)
         mark("integral")
         inv_nf, alive = self.prep(sum2d, sq2d, plan)
         mark("prep")
-        alive = front(sum2d, inv_nf, alive, c, 1, self.n_dense, impl=self.impl)
-        mark("front")
+        if self.packed_front:
+            blk, nblk = live_block_list(alive)
+            mark("blocks")
+            alive = packed_front(sum2d, inv_nf, alive, blk, nblk, c, 1, self.n_dense,
+                                 impl=self.impl)
+            mark("packed_front")
+        else:
+            alive = front(sum2d, inv_nf, alive, c, 1, self.n_dense, impl=self.impl)
+            mark("front")
         idx = extract_survivors(alive)
         n = int(idx.numel())
         mark("extract")
@@ -151,7 +179,7 @@ class StageEngine(_Pipeline):
         walk, extract."""
         c = self.cascade
         mark = _PhaseClock(self.device, timings)
-        levels, grid, ordinal = self._plan_tensors(plan)
+        levels, grid, ordinal, _ = self._plan_tensors(plan)
         px = build_pixel_canvas(img, plan, levels)
         mark("resize")
         sum2d, sq2d = integral(px, impl=self.impl)

@@ -23,16 +23,17 @@ def front_ref(sum2d, inv_nf, alive, cascade, s0, s1):
     return alive
 
 
-def front(sum2d, inv_nf, alive, cascade, s0: int, s1: int, impl: str = "auto"):
-    """sum2d (canvas_h, canvas_w) int32 integral canvas; inv_nf (out_h,
-    out_w) f32; alive (out_h, out_w) bool with out_h = canvas_h − win_h and
-    out_w = canvas_w − win_w → alive ∧ stages [s0, s1) passed (bool)."""
+def check_stages(cascade, s0: int, s1: int):
+    """The front takes an upright cascade and a stage range inside it."""
     if not 0 <= s0 <= s1 <= len(cascade.stages):
         raise ValueError(f"stage range [{s0}, {s1}) out of bounds")
     if cascade.has_tilted:
         raise ValueError("front takes upright cascades; tilted ones go to detect/stage.py")
-    if _build.use_ref(sum2d, impl):
-        return front_ref(sum2d, inv_nf, alive, cascade, s0, s1)
+
+
+def check_inputs(sum2d, inv_nf, alive, cascade):
+    """Device, dtype, rank, contiguity and shapes of a front kernel's
+    canvas, inv_nf and mask."""
     dev = sum2d.device
     _build.require(sum2d, torch.int32, 2, "sum2d", dev)
     _build.require(inv_nf, torch.float32, 2, "inv_nf", dev)
@@ -44,6 +45,18 @@ def front(sum2d, inv_nf, alive, cascade, s0: int, s1: int, impl: str = "auto"):
         or sum2d.shape[1] != out_w + cascade.win_w
     ):
         raise ValueError("front: canvas / mask / inv_nf shapes disagree")
+
+
+def front(sum2d, inv_nf, alive, cascade, s0: int, s1: int, impl: str = "auto"):
+    """sum2d (canvas_h, canvas_w) int32 integral canvas; inv_nf (out_h,
+    out_w) f32; alive (out_h, out_w) bool with out_h = canvas_h − win_h and
+    out_w = canvas_w − win_w → alive ∧ stages [s0, s1) passed (bool)."""
+    check_stages(cascade, s0, s1)
+    if _build.use_ref(sum2d, impl):
+        return front_ref(sum2d, inv_nf, alive, cascade, s0, s1)
+    check_inputs(sum2d, inv_nf, alive, cascade)
+    dev = sum2d.device
+    out_h, out_w = alive.shape
     tab = cascade.device_table(dev)
     out = torch.empty_like(alive)
     code = _build.lib().cct_front(

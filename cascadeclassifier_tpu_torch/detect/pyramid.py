@@ -1,12 +1,19 @@
 """Multi-scale pyramid plan: static canvas geometry (numpy only).
 
-A copy of ``cascadeclassifier_tpu.detect.pyramid`` restricted to the plain
-vertical stack (``pack_band=False``): every pyramid level sits in its own
-(h_s+1)-row block of one (canvas_h, canvas_w) canvas whose first row and
-first column are zero, so one integral image with the uniform row stride
-canvas_w serves every level. The shelf-packed layout and the per-row
-gather tables of the JAX package are TPU layout choices the detections
-do not depend on, and are not carried over.
+A copy of ``cascadeclassifier_tpu.detect.pyramid.build_plan`` without the
+per-row resize gather tables (the port resizes each level with its own
+axis tables, ``detector.resize_tables``). Every pyramid level sits in an
+(h_s+1) x (w_s+1) block of one (canvas_h, canvas_w) canvas whose first
+row and first column are zero, so one integral image with the uniform
+row stride canvas_w serves every level. Two layouts:
+
+  - the plain vertical stack (``pack_band=False``): each level takes a
+    full-width row block at column 0;
+  - shelf packing (``pack_band=True``): ystep-2 levels keep the vertical
+    stack, ystep-1 levels go first-fit onto shared row shelves side by
+    side; the canvas shrinks ~30 % at 1080p. A level's window grid and
+    level map are then 2-D (``grid2d``, ``lvl2d``), since one canvas row
+    holds several levels.
 
 Scale enumeration, ystep and grid geometry replicate OpenCV 4.x:
   - factor = 1, sf, sf², …; a level is kept while cvRound(win·factor)
@@ -47,7 +54,16 @@ class PyramidPlan:
     row_step2: np.ndarray  # (canvas_h,) bool — level has ystep == 2
     row_maxc: np.ndarray  # (canvas_h,) int32 — last valid window column
     row_scale: np.ndarray  # (canvas_h,) int32 — level id of the row (-1 pad)
-    is_top: np.ndarray  # (canvas_h,) bool — each level's zero row (block_top)
+    is_top: np.ndarray  # (canvas_h,) bool — zero rows of the stacked levels
+    # shelf-packed layout (pack_band=True); block_left is zero and
+    # stack_top equals block_top for the plain stack
+    packed: bool = False
+    block_left: np.ndarray | None = None  # (S,) canvas col of the zero col
+    stack_top: np.ndarray | None = None  # (S,) row in the plain stack
+    stack_h: int = 0  # rows of the plain stack (= canvas_h unpacked)
+    lvl2d: np.ndarray | None = None  # (canvas_h, canvas_w) int16 level map
+    row_is_plane: np.ndarray | None = None  # (canvas_h,) bool ystep-2 rows
+    grid2d: np.ndarray | None = None  # (out_h, out_w) bool anchor grid
 
     @property
     def out_h(self):
@@ -85,6 +101,7 @@ def build_plan(
     scale_factor: float = 1.1,
     min_size: tuple | None = None,
     max_size: tuple | None = None,
+    pack_band: bool = False,
 ) -> PyramidPlan:
     scales = opencv_scales(
         img_w, img_h, win_w, win_h, scale_factor, min_size, max_size
@@ -107,18 +124,55 @@ def build_plan(
         box_h[i] = _cv_round(np.float32(win_h) * sc)
 
     canvas_w = int(scaled_w.max()) + 1
+    block_rows = scaled_h + 1
     # even block_top for ystep-2 levels, as in the JAX package, so both
     # packages share one canvas geometry
+    stack_top = np.zeros(S, np.int32)
     block_top = np.zeros(S, np.int32)
+    block_left = np.zeros(S, np.int32)
     top = 0
     for s in range(S):
         if ystep[s] == 2 and (top & 1):
             top += 1
-        block_top[s] = top
-        top += int(scaled_h[s]) + 1
-    canvas_h = top
+        stack_top[s] = top
+        top += int(block_rows[s])
+    stack_h = top
+
+    if not pack_band:
+        block_top[:] = stack_top
+        canvas_h = stack_h
+    else:
+        # ystep-2 levels keep the vertical stack; ystep-1 levels go
+        # first-fit onto shelves at even columns. Levels arrive in
+        # descending size, so any level fits the height of an earlier
+        # shelf and only the width is checked. Window reads never leave
+        # a level's block, so blocks abut with no guard.
+        top = 0
+        shelves = []  # [y0, x cursor]
+        for s in range(S):
+            hb, wb = int(block_rows[s]), int(scaled_w[s]) + 1
+            if ystep[s] == 2:
+                if top & 1:
+                    top += 1
+                block_top[s] = top
+                top += hb
+                continue
+            for sh in shelves:
+                x0 = -(-sh[1] // 2) * 2
+                if x0 + wb <= canvas_w:
+                    block_top[s], block_left[s] = sh[0], x0
+                    sh[1] = x0 + wb
+                    break
+            else:
+                y0 = -(-top // 2) * 2
+                block_top[s], block_left[s] = y0, 0
+                shelves.append([y0, wb])
+                top = y0 + hb
+        canvas_h = top
+    # zero rows of the stacked levels; shelf-packed band levels share
+    # their rows and are left out, as in the JAX package
     is_top = np.zeros(canvas_h, bool)
-    is_top[block_top] = True
+    is_top[block_top[ystep == 2] if pack_band else block_top] = True
 
     row_is_grid = np.zeros(canvas_h, bool)
     row_step2 = np.zeros(canvas_h, bool)
@@ -129,15 +183,31 @@ def build_plan(
     # iterates y < min(nstripes*stripeSize, prH): with ystep 2 and odd prH
     # the last grid row is visited iff nstripes does not divide prH//ystep
     nstripes = int(np.ceil((int(scaled_w[0]) + 1 - win_w) / 32.0))
+    lvl2d = row_is_plane = grid2d = None
+    if pack_band:
+        lvl2d = np.full((canvas_h, canvas_w), -1, np.int16)
+        row_is_plane = np.zeros(canvas_h, bool)
+        grid2d = np.zeros((max(canvas_h - win_h, 0), max(canvas_w - win_w, 0)), bool)
     for s in range(S):
         t, h_s, w_s = int(block_top[s]), int(scaled_h[s]), int(scaled_w[s])
+        le = int(block_left[s])
         step = int(ystep[s])
         if w_s < win_w or h_s < win_h:
             continue
         pr_h = h_s + 1 - win_h
         stripe = max(-(-(pr_h // step) // max(nstripes, 1)), 1) * step
         y_bound = min(max(nstripes, 1) * stripe, pr_h)
-        row_is_grid[t + np.arange(0, y_bound, step)] = True
+        ys = np.arange(0, y_bound, step)
+        row_is_grid[t + ys] = True
+        if pack_band:
+            lvl2d[t : t + h_s + 1, le : le + w_s + 1] = s
+            if step == 2:
+                row_is_plane[t : t + h_s + 1] = True
+            grid2d[np.ix_(t + ys, le + np.arange(0, w_s - win_w + 1, step))] = True
+            if step == 1:
+                # shared shelf rows: the per-row descriptors cannot hold
+                # side-by-side levels; grid2d and lvl2d do
+                continue
         row_step2[t : t + h_s + 1] = step == 2
         row_maxc[t : t + h_s + 1] = w_s - win_w
         row_scale[t : t + h_s + 1] = s
@@ -161,4 +231,11 @@ def build_plan(
         row_maxc=row_maxc,
         row_scale=row_scale,
         is_top=is_top,
+        packed=pack_band,
+        block_left=block_left,
+        stack_top=stack_top,
+        stack_h=stack_h,
+        lvl2d=lvl2d,
+        row_is_plane=row_is_plane,
+        grid2d=grid2d,
     )

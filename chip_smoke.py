@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py
 
-Drives cascadeclassifier_tpu_torch's two detection paths through
+Drives cascadeclassifier_tpu_torch's detection paths through
 TorchDetector on cuda:0, on 1920x1080 synthetic frames at scaleFactor
 1.1, and checks them. The frontal-face path (haarcascade_frontalface_alt
-.xml, 22 upright stages, engine "fused"):
+.xml, 22 upright stages, engine "fused") on the plain vertical stack
+(pack_band=False):
 
-  (a) build     compile the five CUDA kernels from csrc/, one nvcc per
+  (a) build     compile the six CUDA kernels from csrc/, one nvcc per
                 source, all started together (seconds)
   (b) integral  kernel integral vs its plain twin on frame 0's canvas
   (c) front     kernel front vs its twin over stages 1..n_dense-1, on the
@@ -30,12 +31,30 @@ features, engine "pallas"):
                 tilted and stage launched
   (j) timing    frames/s over 8 frames after a warm-up, phase table
 
+The frontal face again on the shelf-packed plan (pack_band=True, the
+fused engine's default), with the dense front and with the packed front
+(packed_front=True):
+
+  (k) plan      both canvases; kernel integral vs its twin on the
+                shelf-packed canvas
+  (l) packed    the live-block list vs the list built on the CPU; kernel
+                packed_front vs its twin and vs kernel front over stages
+                1..n_dense-1 on frame 0's prep mask; survivors and the
+                live-block fraction
+  (m) e2e       per front: frames 0-3 equal the twin path and map to the
+                plain stack's rects, frames 0 and 1 equal the OpenCV
+                golden at minNeighbors 3 and 0, and packed_front (or
+                front) alone was launched
+  (n) timing    per front: frames/s and phase table; both front kernels
+                and the list build timed on the shelf-packed canvas
+
 and last, per kernel at its path's shapes: time against its twin, the
 least time the card could take (bytes over 3.35 TB/s or operations over
 67 TFLOP/s, the H100 SXM's published rates), and one PyTorch call that
 computes the same function where one exists; then each path traced with
-torch.profiler over 4 frames (device time, idle share, launches). Exits
-non-zero on any mismatch, and without CUDA. The last line is
+torch.profiler over 4 frames (device time, idle share, launches, host
+synchronizations: the packed front's may not exceed the dense front's).
+Exits non-zero on any mismatch, and without CUDA. The last line is
 {"ok": true, "device": ...}.
 """
 
@@ -110,9 +129,18 @@ def main():
 
     from cascadeclassifier_tpu_torch import _build
     from cascadeclassifier_tpu_torch.detect.dense import dense_variance_gate
-    from cascadeclassifier_tpu_torch.detect.detector import TorchDetector, build_pixel_canvas
+    from cascadeclassifier_tpu_torch.detect.detector import (
+        TorchDetector,
+        build_pixel_canvas,
+        positions_to_rects,
+    )
     from cascadeclassifier_tpu_torch.detect.front import front
     from cascadeclassifier_tpu_torch.detect.integral import integral
+    from cascadeclassifier_tpu_torch.detect.packed_front import (
+        listed_windows,
+        live_block_list,
+        packed_front,
+    )
     from cascadeclassifier_tpu_torch.detect.patchify import patchify
     from cascadeclassifier_tpu_torch.detect.stage import stage
     from cascadeclassifier_tpu_torch.detect.tilted import segments, tilted
@@ -136,8 +164,8 @@ def main():
     print(f"(a) build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(_build.SOURCES)} -> sm_90a)", flush=True)
 
-    det = TorchDetector(model, exact=False, device=dev)
-    ref = TorchDetector(model, exact=False, device=dev, impl="ref")
+    det = TorchDetector(model, exact=False, device=dev, pack_band=False)
+    ref = TorchDetector(model, exact=False, device=dev, impl="ref", pack_band=False)
     check(det.engine_name == "fused", f"frontal face routed to {det.engine_name}")
     eng, cas = det.engine, det.packed
     frames = [synth_frame(k, H, W) for k in range(8)]
@@ -257,7 +285,7 @@ def main():
     eng_b, cas_b = det_b.engine, det_b.packed
     n_st = len(cas_b.stages)
     plan_b = det_b.plan_for(W, H, SF, None, None)
-    levels_b, grid_b, _ = eng_b._plan_tensors(plan_b)
+    levels_b, grid_b = eng_b._plan_tensors(plan_b)[:2]
     pad = int(plan_b.scaled_h.max()) + 1
 
     # (g) tilted
@@ -304,7 +332,8 @@ def main():
     counts = dict(_build.LAUNCHES)
     for name in ("integral", "tilted", "stage"):
         check(counts.get(name, 0) > 0, f"kernel {name} was not launched on the upper-body path")
-    check("front" not in counts, "the upper-body path launched the front kernel")
+    check("front" not in counts and "packed_front" not in counts,
+          "the upper-body path launched a front kernel")
     launches["tilted"], launches["stage"] = counts["tilted"], counts["stage"]
     for k, idx_k in got_b.items():
         check(np.array_equal(idx_k, ref_b.raw_windows(frames[k], SF)[1]),
@@ -335,6 +364,109 @@ def main():
     work["stage"] = bound(2 * 4 * sb.numel() + 7 * plan_b.out_h * plan_b.out_w,
                           cascade_ops(cas_b, 0, stage_eval))
 
+    # ------------------------------------------------------------------
+    # the frontal face on the shelf-packed plan: dense and packed front
+    n_dense = eng.n_dense
+
+    # (k) plan
+    det_p = TorchDetector(model, exact=False, device=dev)
+    check(det_p.pack_band, "the fused engine did not take the shelf-packed plan by default")
+    plan_p = det_p.plan_for(W, H, SF, None, None)
+    check(plan_p.packed, "pack_band=True gave a plain-stack plan")
+    px_p = build_pixel_canvas(img0, plan_p, det_p.engine._plan_tensors(plan_p)[0])
+    sp_k, qp_k = integral(px_p)
+    sp_r, qp_r = integral(px_p, impl="ref")
+    torch.cuda.synchronize()
+    err = max(max_abs_err(sp_k, sp_r), max_abs_err(qp_k, qp_r))
+    errs["integral"] = max(errs["integral"], err)
+    check(torch.equal(sp_k, sp_r) and torch.equal(qp_k, qp_r),
+          "integral kernel != twin on the shelf-packed canvas")
+    print(f"(k) plan: shelf-packed canvas {plan_p.canvas_h} x {plan_p.canvas_w} "
+          f"({px_p.numel()} cells) against the plain stack's {plan.canvas_h} x "
+          f"{plan.canvas_w} ({px.numel()} cells); integral equal to the twin there "
+          f"(tolerance: exact, max_abs_err {err})", flush=True)
+
+    # (l) packed front
+    inv_p, alive_p = det_p.engine.prep(sp_k, qp_k, plan_p)
+    blk, nblk = live_block_list(alive_p)
+    blk_r, nblk_r = live_block_list(alive_p.cpu())
+    check(torch.equal(blk.cpu(), blk_r) and torch.equal(nblk.cpu(), nblk_r),
+          "live-block list on the card != the list built on the CPU")
+    pf_k = packed_front(sp_k, inv_p, alive_p, blk, nblk, cas, 1, n_dense)
+    pf_r = packed_front(sp_k, inv_p, alive_p, blk, nblk, cas, 1, n_dense, impl="ref")
+    df_k = front(sp_k, inv_p, alive_p, cas, 1, n_dense)
+    torch.cuda.synchronize()
+    errs["packed_front"] = max(max_abs_err(pf_k, pf_r), max_abs_err(pf_k, df_k))
+    check(torch.equal(pf_k, pf_r), "packed_front kernel != twin")
+    check(torch.equal(pf_k, df_k), "packed_front kernel != front kernel on the same inputs")
+    n_live, nb_cap = int(nblk[0]), blk.shape[0]
+    n_prep_p, n_front_p = int(alive_p.sum()), int(pf_k.sum())
+    n_listed = int(listed_windows(blk, nblk, plan_p.out_h, plan_p.out_w).sum())
+    print(f"(l) packed front: {n_live} of {nb_cap} 16x512 blocks live "
+          f"({100 * n_live / nb_cap:.1f} %, {n_listed} of {plan_p.out_h * plan_p.out_w} "
+          f"windows); {n_prep_p} windows after prep, {n_front_p} after stages "
+          f"1..{n_dense - 1}; equal to the twin and to the front kernel (tolerance: exact)",
+          flush=True)
+    check((n_prep_p, n_front_p) == (n_prep, n_front),
+          "survivor counts differ between the shelf-packed and the plain-stack canvas")
+
+    # (m) end to end, dense and packed front on the shelf-packed plan
+    plain_rects = [sorted(map(tuple, positions_to_rects(plan, got[k]).tolist()))
+                   for k in range(4)]
+    shelf = {}
+    for pf in (False, True):
+        d = TorchDetector(model, exact=False, device=dev, packed_front=pf)
+        d_ref = TorchDetector(model, exact=False, device=dev, impl="ref", packed_front=pf)
+        kern, other = ("packed_front", "front") if pf else ("front", "packed_front")
+        _build.LAUNCHES.clear()
+        got_p = [d.raw_windows(frames[k], SF)[1] for k in range(4)]
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        for name in ("integral", kern, "patchify"):
+            check(counts.get(name, 0) > 0, f"kernel {name} was not launched (packed_front={pf})")
+        check(other not in counts, f"kernel {other} was launched (packed_front={pf})")
+        if pf:
+            launches["packed_front"] = counts["packed_front"]
+        for k in range(4):
+            check(np.array_equal(got_p[k], d_ref.raw_windows(frames[k], SF)[1]),
+                  f"shelf-packed frame {k} (packed_front={pf}): kernel path != twin path")
+            ours = sorted(map(tuple, positions_to_rects(plan_p, got_p[k]).tolist()))
+            check(ours == plain_rects[k],
+                  f"shelf-packed frame {k} (packed_front={pf}): raw windows map to other "
+                  "rects than the plain stack's")
+        for g in golden["frames"]:
+            for mn in (3, 0):
+                ours = sorted(map(list, TorchDetector.group(plan_p, got_p[g["k"]], mn).tolist()))
+                check(ours == g[f"rects_mn{mn}"],
+                      f"shelf-packed frame {g['k']} (packed_front={pf}) minNeighbors {mn}: "
+                      f"{len(ours)} rects vs {len(g[f'rects_mn{mn}'])} in the OpenCV golden")
+        print(f"(m) e2e shelf-packed, packed_front={pf}: frames 0-3 raw windows "
+              f"{[len(x) for x in got_p]} equal to the twin path and map to the plain "
+              f"stack's rects; frames 0,1 equal the OpenCV golden at minNeighbors 3 and 0; "
+              f"launches {counts}", flush=True)
+        shelf[pf] = d
+
+    # (n) timing
+    for pf, d in shelf.items():
+        detection_timing(f"n, packed_front={pf}", d, frames, SF, smi)
+    blk_ms = cuda_ms(lambda: live_block_list(alive_p), 20)
+    dense_ms = cuda_ms(lambda: front(sp_k, inv_p, alive_p, cas, 1, n_dense), 20)
+    packed_ms = cuda_ms(lambda: packed_front(sp_k, inv_p, alive_p, blk, nblk, cas, 1, n_dense),
+                        20)
+    print(f"(n) shelf-packed canvas, frame 0: front kernel {dense_ms:.4f} ms, packed_front "
+          f"kernel {packed_ms:.4f} ms, live-block list {blk_ms:.4f} ms", flush=True)
+    front_eval_p = [n_prep_p] + [
+        int(front(sp_k, inv_p, alive_p, cas, 1, s).sum()) for s in range(2, n_dense)
+    ]
+    timed["packed_front"] = (
+        lambda: packed_front(sp_k, inv_p, alive_p, blk, nblk, cas, 1, n_dense),
+        lambda: packed_front(sp_k, inv_p, alive_p, blk, nblk, cas, 1, n_dense, impl="ref"),
+        None, 3)
+    # the listed blocks' windows: canvas cell, inv_nf, mask in and out;
+    # plus the list
+    work["packed_front"] = bound(10 * n_listed + 8 * n_live + 4,
+                                 cascade_ops(cas, 1, front_eval_p))
+
     meta = {
         "integral": ("cascadeclassifier_tpu_torch/csrc/integral.cu",
                      "cascadeclassifier_tpu/detect/pallas_integral.py:50"),
@@ -347,6 +479,9 @@ def main():
                    "cascadeclassifier_tpu/detect/dense.py:343 (XLA scan, not Pallas)"),
         "stage": ("cascadeclassifier_tpu_torch/csrc/stage.cu",
                   "cascadeclassifier_tpu/detect/pallas_stage.py:92"),
+        "packed_front": ("cascadeclassifier_tpu_torch/csrc/packed_front.cu",
+                         "cascadeclassifier_tpu/detect/pallas_front.py:326; "
+                         "cascadeclassifier_tpu/detect/pallas_front.py:470"),
     }
     kernels = []
     for name, (fk, fr, flib, plain_reps) in timed.items():
@@ -363,8 +498,13 @@ def main():
         print(f"kernel {name}: {ms:.4f} ms, plain twin {plain_ms:.3f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), library call "
               f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}", flush=True)
-    for name, d in (("frontal face", det), ("upper body", det_b)):
-        profile(name, d, frames[:4], SF)
+    syncs = {}
+    for name, d in (("frontal face", det), ("upper body", det_b),
+                    ("frontal face shelf-packed", shelf[False]),
+                    ("frontal face shelf-packed, packed front", shelf[True])):
+        syncs[name] = profile(name, d, frames[:4], SF)
+    check(syncs["frontal face shelf-packed, packed front"] <= syncs["frontal face shelf-packed"],
+          "the packed front adds host synchronizations")
     print(json.dumps({"kernels": kernels}))
     print(f"gpu: {smi}")
     print(json.dumps({"ok": True, "device": {
@@ -385,7 +525,8 @@ def detection_timing(phase: str, det, frames, sf, smi):
     torch.cuda.synchronize()
     fps = len(frames) / (time.perf_counter() - t0)
     print(f"({phase}) timing: {fps:.2f} frames/s at 1080p over {len(frames)} frames "
-          f"(engine {det.engine_name}, sf {sf}, minNeighbors 3) on {smi}", flush=True)
+          f"(engine {det.engine_name}, {'shelf-packed' if det.pack_band else 'plain-stack'} "
+          f"plan, sf {sf}, minNeighbors 3) on {smi}", flush=True)
     phases = {}
     t0 = time.perf_counter()
     for f in frames:
@@ -429,6 +570,7 @@ def profile(name: str, det, frames, sf):
           f"{launches / n:.0f} kernel launches and {syncs / n:.0f} synchronizations "
           f"a frame", flush=True)
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=8), flush=True)
+    return syncs / n
 
 
 if __name__ == "__main__":

@@ -100,6 +100,29 @@ def test_build_plan_matches_unpacked_original(args):
     assert pyramid.opencv_scales(*args[:5]) == jpyramid.opencv_scales(*args[:5])
 
 
+@pytest.mark.parametrize("args", [
+    (1920, 1080, 20, 20, 1.1, None, None),
+    (1920, 1080, 22, 18, 1.1, None, None),
+    (320, 240, 20, 20, 1.1, None, None),
+    (160, 120, 20, 20, 1.1, None, None),
+])
+def test_build_plan_matches_packed_original(args):
+    """Shelf packing (pack_band=True), field by field: placement, level
+    map, ystep-2 rows and the 2-D anchor grid."""
+    jplan = jpyramid.build_plan(*args, pack_band=True)
+    plan = pyramid.build_plan(*args, pack_band=True)
+    assert plan.packed and plan.grid2d.shape == (plan.out_h, plan.out_w)
+    assert plan.block_left.any()  # some level sits beside another
+    for f in dataclasses.fields(plan):
+        np.testing.assert_array_equal(
+            getattr(plan, f.name), getattr(jplan, f.name), err_msg=f.name
+        )
+    _assert_same(plan_from_jax(jplan), plan)
+    unpacked = pyramid.build_plan(*args)
+    assert plan.canvas_w == unpacked.canvas_w and plan.canvas_h < unpacked.canvas_h
+    np.testing.assert_array_equal(plan.stack_top, unpacked.block_top)
+
+
 @pytest.mark.parametrize("n,thr", [(0, 2), (40, 0), (40, 1), (200, 3), (300, 2)])
 def test_group_rectangles_matches_original(n, thr):
     rng = np.random.default_rng(n + thr)
@@ -172,7 +195,7 @@ def test_port_imports_without_jax():
         "        mod = importlib.import_module(node.module)\n"
         "        for a in node.names: getattr(mod, a.name)\n"
         "import chip_smoke\n"
-        "for m in ('detect.stage', 'detect.tilted', 'detect.engine', 'utils.golden'):\n"
+        "for m in ('detect.stage', 'detect.tilted', 'detect.packed_front', 'detect.engine', 'utils.golden'):\n"
         "    assert 'cascadeclassifier_tpu_torch.' + m in sys.modules, m\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'cascadeclassifier_tpu.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"

@@ -1,6 +1,7 @@
 """The PyTorch port's whole detection slices against the JAX package: the
-fused engine (interpret mode) and XLA engine for the frontal face, the
-pallas engine (interpret mode) and XLA engine for the tilted upper body."""
+fused engine (interpret mode, dense and packed front) and XLA engine for
+the frontal face, the pallas engine (interpret mode) and XLA engine for
+the tilted upper body."""
 
 import dataclasses
 import os
@@ -59,6 +60,46 @@ def test_slice_matches_jax_fused_and_xla_engines():
     assert got == want_fused == want_xla
 
 
+@pytest.fixture(scope="module")
+def jax_packed_front_rects():
+    """The JAX fused engine with CCTPU_PACKED_FRONT=1 (its plan is then
+    shelf-packed, its front the packed band and plane kernels), set up as
+    test_slice_matches_jax_fused_and_xla_engines is: run once (~45 s on a
+    CPU) for the module."""
+    img = face_blob_image(240, 180, n=4, seed=7)
+    jm = jread_cascade_xml(HAAR_ALT)
+    jm10 = dataclasses.replace(jm, stages=list(jm.stages[:10]))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CCTPU_PACKED_FRONT", "1")
+        mp.delenv("CCTPU_PACK_BAND", raising=False)
+        fus = TPUDetector(jm10, exact=False, engine="fused", pallas_interpret=True)
+        fus._fused.STATIC_FRONT_TREES = 50
+        fus._fused.tail_n = 4096
+        assert fus._fused.wants_packed_plan()
+        rects = _sorted(fus.detect_multi_scale(img, 1.2, 0))
+    return img, rects
+
+
+@pytest.mark.parametrize("pack_band,packed_front", [(True, True), (True, False),
+                                                    (False, False)])
+def test_packed_slice_matches_jax_packed_front_engine(jax_packed_front_rects, pack_band,
+                                                      packed_front):
+    """The 10-stage slice on the shelf-packed plan with the packed front,
+    with the dense front, and on the plain stack: the JAX packed-front
+    engine's rects, non-empty."""
+    img, want = jax_packed_front_rects
+    m = read_cascade_xml(HAAR_ALT)
+    m10 = dataclasses.replace(m, stages=list(m.stages[:10]))
+    det = TorchDetector(m10, exact=False, device="cpu", front_trees=50,
+                        pack_band=pack_band, packed_front=packed_front)
+    plan, idx = det.raw_windows(img, 1.2)
+    assert plan.packed == pack_band
+    assert det.engine.last_counts["front_survivors"] > 0  # the tail ran
+    got = _sorted(TorchDetector.group(plan, idx, 0))
+    assert len(got) > 0
+    assert got == want
+
+
 def test_detector_refuses_what_is_not_ported():
     m = read_cascade_xml(HAAR_ALT)
     with pytest.raises(NotImplementedError):
@@ -104,3 +145,20 @@ def test_engine_routing():
         TorchDetector(body, device="cpu", engine="xla")
     with pytest.raises(NotImplementedError):
         TorchDetector(body, exact=True, device="cpu")
+
+
+def test_plan_layout_routing():
+    """pack_band=None takes the shelf-packed plan for "fused" and the
+    plain stack for "pallas"; "pallas" refuses a shelf-packed plan and
+    the packed front, as the JAX package asserts."""
+    face = read_cascade_xml(HAAR_ALT)
+    body = read_cascade_xml(UPPERBODY)
+    assert TorchDetector(face, device="cpu").plan_for(320, 240, 1.1, None, None).packed
+    assert not TorchDetector(face, device="cpu", pack_band=False).plan_for(
+        320, 240, 1.1, None, None).packed
+    assert not TorchDetector(body, device="cpu").plan_for(320, 240, 1.1, None, None).packed
+    for kw in (dict(pack_band=True), dict(packed_front=True)):
+        with pytest.raises(ValueError):
+            TorchDetector(body, device="cpu", **kw)
+        with pytest.raises(ValueError):
+            TorchDetector(face, device="cpu", engine="pallas", **kw)
