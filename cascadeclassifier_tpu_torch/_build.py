@@ -31,6 +31,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("integral.cu", "front.cu", "patchify.cu", "tilted.cu", "stage.cu",
            "packed_front.cu")
+HEADERS = ("cascade_tile.cuh",)  # included by front.cu and stage.cu
 NVCC_FLAGS = (
     "-O3",
     "--fmad=false",
@@ -47,10 +48,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # px, sum, sq, chunk totals, h, w, chunk rows, stream
     "cct_integral": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # canvas, canvas_w, inv, alive_in, alive_out, out_h, out_w,
-    # rects, weights, tree params, stage_start, stage_thr, s0, s1, stream
-    "cct_front": [_P, _I, _P, _P, _P, _I, _I,
-                  _P, _P, _P, _P, _P, _I, _I, _P],
+    # canvas, canvas_w, inv, alive_in, alive_out, out_h, out_w, win_h, win_w,
+    # records, pitch, stage_start, stage_thr, s0, s1, stream
+    "cct_front": [_P, _I, _P, _P, _P, _I, _I, _I, _I,
+                  _P, _I, _P, _P, _I, _I, _P],
     # canvas, canvas_w, inv, alive_in, alive_out, out_h, out_w, blk,
     # nblk (device), nb_cap, rects, weights, tree params, stage_start,
     # stage_thr, s0, s1, stream
@@ -60,10 +61,12 @@ _SIGNATURES = {
     "cct_patchify": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
     # px, out, h, w, segments, n segments, padded width, stream
     "cct_tilted": [_P, _P, _I, _I, _P, _I, _I, _P],
-    # sum, tilt, canvas_w, inv, alive_in, alive_out, passed0, out_h, out_w,
-    # rects, weights, tree params, tilted, stage_start, stage_thr, s0, s1, stream
-    "cct_stage": [_P, _P, _I, _P, _P, _P, _P, _I, _I,
-                  _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # sum, tilt, has_tilt, canvas_w, inv, alive_in, alive_out, passed0, out_h,
+    # out_w, win_h, win_w, records, pitch, tile_h, stage_start, stage_thr, s0,
+    # s1, stream
+    "cct_stage": [_P, _P, _I, _I, _P, _P, _P, _P, _I,
+                  _I, _I, _I, _P, _I, _I, _P, _P, _I,
+                  _I, _P],
 }
 
 _lib = None
@@ -84,7 +87,7 @@ def _find_nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]

@@ -8,97 +8,49 @@
 // the canvas layout for both: the walk mask the prep hands in already
 // holds only even anchors on ystep-2 rows, so no parity planes exist.
 //
-// One thread per canvas window. A window that is not alive exits at once;
-// an alive one runs the stages [s0, s1) in order and stops at the first
-// stage it fails. Per tree, as dense_stage_haar(exact=False) does:
-//   rect  = C[y][x] - C[y][x+w] - C[y+h][x] + C[y+h][x+w]   (uint32 wrap,
-//           exact because the true sum fits int32)
-//   raw   = f32(rect0)*w0 + f32(rect1)*w1 (+ ...), rects of weight 0 skipped
-//   val   = raw * inv_nf;  leaf = val < thr ? left : right
-//   ssum  = ssum + leaf, one add per tree in tree order
-// and the stage passes iff ssum >= stage_thr. Built with --fmad=false so
-// no multiply-add is contracted into an FMA (the reference rounds twice).
+// The kernel is cascade_tile.cuh's tile kernel without its dense pass: a
+// block owns a tile of kTileH x 128 windows, leaves a tile with no alive
+// window after reading its mask bytes only, and otherwise copies the
+// tile's patch of the integral canvas into shared memory, compacts the
+// alive windows into a list and runs the stages [s0, s1) over the list,
+// compacting the survivors after every stage, so every lane of a working
+// warp holds a live window. Tree parameters come as packed 48-byte records
+// (detect/records.py) whose corner offsets are resolved against the shared
+// patch. The arithmetic and its order are spelled out in cascade_tile.cuh.
 //
-// Tree parameters live in device buffers (rects (T,3,4) int32, weights
-// (T,3) f32, (thr, left, right) (T,3) f32, stage_start (S+1), stage_thr
-// (S)), so one binary serves every cascade; every thread of a warp reads
-// the same parameter, which the cache broadcasts.
-//
-// Bound: canvas gathers. An alive window reads 4 corners per rect from a
-// 21x21 patch of the integral canvas; neighbouring threads read
-// neighbouring columns, so the loads coalesce and the patch stays in L1/L2.
-// Dead windows cost one byte read and one byte written.
+// Bound: latency. After prep about one window in twenty is alive, so a
+// live tile holds a short list whose windows each wait on a chain of
+// dependent trees (a record's three loads, 4 shared-memory gathers a rect,
+// the f32 chain), and the lists shrink stage by stage; the tile kernel
+// answers with more lanes a window. Device memory is not the limit: a dead
+// tile costs one byte read and one byte written a window, which is what
+// the byte bound counts, and a live one its patch, about 2.5 canvas cells
+// a window with the halo, mostly from L2. Times on the card: PERF.md.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "cascade_tile.cuh"
 
-namespace {
+#ifndef CCT_FRONT_TILE_H
+#define CCT_FRONT_TILE_H 16
+#endif
+#ifndef CCT_FRONT_THREADS
+#define CCT_FRONT_THREADS 256
+#endif
 
-constexpr int kThreads = 256;
-
-__global__ void front_kernel(const int32_t* __restrict__ canvas, int canvas_w,
-                             const float* __restrict__ inv, const uint8_t* __restrict__ alive_in,
-                             uint8_t* __restrict__ alive_out, int out_h, int out_w,
-                             const int4* __restrict__ rects, const float* __restrict__ wts,
-                             const float* __restrict__ tparam,
-                             const int32_t* __restrict__ stage_start,
-                             const float* __restrict__ stage_thr, int s0, int s1) {
-  const long long n = static_cast<long long>(out_h) * out_w;
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (!alive_in[i]) {
-    alive_out[i] = 0;
-    return;
-  }
-  const int r = static_cast<int>(i / out_w);
-  const int c = static_cast<int>(i - static_cast<long long>(r) * out_w);
-  const uint32_t* base = reinterpret_cast<const uint32_t*>(canvas) +
-                         static_cast<size_t>(r) * canvas_w + c;
-  const float inv_nf = inv[i];
-  uint8_t alive = 1;
-  for (int s = s0; s < s1 && alive; ++s) {
-    float ssum = 0.0f;
-    const int t1 = stage_start[s + 1];
-    for (int t = stage_start[s]; t < t1; ++t) {
-      float raw = 0.0f;
-      bool first = true;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float wt = wts[t * 3 + k];
-        if (wt == 0.0f) continue;
-        const int4 q = rects[t * 3 + k];  // x, y, w, h
-        const uint32_t* p0 = base + static_cast<size_t>(q.y) * canvas_w + q.x;
-        const uint32_t* p1 = p0 + static_cast<size_t>(q.w) * canvas_w;
-        const uint32_t u = p0[0] - p0[q.z] - p1[0] + p1[q.z];
-        const float term = static_cast<float>(static_cast<int32_t>(u)) * wt;
-        raw = first ? term : raw + term;
-        first = false;
-      }
-      const float val = raw * inv_nf;
-      const float* tp = tparam + t * 3;  // thr, left, right
-      ssum = ssum + (val < tp[0] ? tp[1] : tp[2]);
-    }
-    alive = ssum >= stage_thr[s];
-  }
-  alive_out[i] = alive;
-}
-
-}  // namespace
-
-// Returns cudaGetLastError() after the launch.
+// canvas (out_h + win_h, canvas_w) int32; inv (out_h, out_w) f32;
+// alive_in, alive_out (out_h, out_w) u8; records (T, 48) bytes resolved
+// against pitch. Returns the first CUDA error of the launch.
 extern "C" int cct_front(const void* canvas, int canvas_w, const void* inv,
                          const void* alive_in, void* alive_out, int out_h, int out_w,
-                         const void* rects, const void* wts, const void* tparam,
+                         int win_h, int win_w, const void* records, int pitch,
                          const void* stage_start, const void* stage_thr, int s0, int s1,
                          void* stream) {
-  const long long n = static_cast<long long>(out_h) * out_w;
-  if (n <= 0 || s1 < s0) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  front_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(canvas), canvas_w, static_cast<const float*>(inv),
-      static_cast<const uint8_t*>(alive_in), static_cast<uint8_t*>(alive_out), out_h,
-      out_w, static_cast<const int4*>(rects), static_cast<const float*>(wts),
-      static_cast<const float*>(tparam), static_cast<const int32_t*>(stage_start),
-      static_cast<const float*>(stage_thr), s0, s1);
-  return static_cast<int>(cudaGetLastError());
+  const cct::Frame f{static_cast<const int32_t*>(canvas), nullptr,
+                     static_cast<const float*>(inv), static_cast<const uint8_t*>(alive_in),
+                     static_cast<uint8_t*>(alive_out), nullptr,
+                     canvas_w, out_h, out_w, win_h, win_w, 0};
+  const cct::Cascade cas{static_cast<const uint4*>(records),
+                         static_cast<const int32_t*>(stage_start),
+                         static_cast<const float*>(stage_thr)};
+  return cct::dispatch<CCT_FRONT_TILE_H, CCT_FRONT_THREADS, false>(
+      pitch, f, cas, s0, s1, static_cast<cudaStream_t>(stream));
 }

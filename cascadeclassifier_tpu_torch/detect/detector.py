@@ -21,6 +21,7 @@ import torch
 
 from cascadeclassifier_tpu_torch.detect.grouping import clip_rects, group_rectangles
 from cascadeclassifier_tpu_torch.detect.pyramid import PyramidPlan, build_plan
+from cascadeclassifier_tpu_torch.detect.records import tile_pitch, tree_records
 from cascadeclassifier_tpu_torch.models.model import FEATURE_HAAR, CascadeModel
 from cascadeclassifier_tpu_torch.ops.resize import _axis_tab
 
@@ -98,8 +99,10 @@ class PackedCascade:
                 raise ValueError(f"stage {si}: a rect leaves the {self.win_w}x{self.win_h} window")
 
     def device_table(self, device) -> dict:
-        """Every tree's parameters as flat device buffers (the front and
-        stage kernels' input), built once per device."""
+        """Every tree's parameters on the device, built once per device:
+        the packed 48-byte tree records (``detect/records.py``) that the
+        front and stage kernels read, with the shared-memory pitch they
+        are resolved against, and the flat arrays of the packed front."""
         key = str(torch.device(device))
         if key not in self._tables:
             cat = np.concatenate
@@ -109,10 +112,13 @@ class PackedCascade:
             def dev(a, dt):
                 return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
 
+            rec = tree_records(st, self.win_w, self.win_h)
             self._tables[key] = dict(
+                records=dev(rec.view(np.uint8).reshape(len(rec), -1), torch.uint8),
+                pitch=tile_pitch(self.win_w),
+                has_tilted=self.has_tilted,
                 rects=dev(cat([s.feat_rects for s in st]), torch.int32),
                 weights=dev(cat([s.weights for s in st]), torch.float32),
-                tilted=dev(cat([s.tilted for s in st]), torch.int32),
                 tparam=dev(
                     np.stack([cat([s.thr for s in st]),
                               cat([s.left_leaf for s in st]),

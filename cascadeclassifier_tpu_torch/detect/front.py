@@ -61,9 +61,8 @@ def front(sum2d, inv_nf, alive, cascade, s0: int, s1: int, impl: str = "auto"):
     out = torch.empty_like(alive)
     code = _build.lib().cct_front(
         sum2d.data_ptr(), sum2d.shape[1], inv_nf.data_ptr(),
-        alive.data_ptr(), out.data_ptr(), out_h, out_w,
-        tab["rects"].data_ptr(), tab["weights"].data_ptr(),
-        tab["tparam"].data_ptr(), tab["stage_start"].data_ptr(),
+        alive.data_ptr(), out.data_ptr(), out_h, out_w, cascade.win_h, cascade.win_w,
+        tab["records"].data_ptr(), tab["pitch"], tab["stage_start"].data_ptr(),
         tab["stage_thr"].data_ptr(), s0, s1, _build.stream_of(sum2d),
     )
     _build.check(code, "cct_front")

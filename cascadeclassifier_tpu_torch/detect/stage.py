@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from cascadeclassifier_tpu_torch import _build
+from cascadeclassifier_tpu_torch.detect import records
 from cascadeclassifier_tpu_torch.detect.dense import stage_pass, window_stage_pass
 
 
@@ -65,11 +66,12 @@ def stage(sum2d, tilt2d, inv_nf, alive, cascade, s0: int, s1: int, impl: str = "
     out = torch.empty_like(alive)
     passed0 = torch.empty_like(alive)
     code = _build.lib().cct_stage(
-        sum2d.data_ptr(), tilt2d.data_ptr(), sum2d.shape[1], inv_nf.data_ptr(),
-        alive.data_ptr(), out.data_ptr(), passed0.data_ptr(), out_h, out_w,
-        tab["rects"].data_ptr(), tab["weights"].data_ptr(), tab["tparam"].data_ptr(),
-        tab["tilted"].data_ptr(), tab["stage_start"].data_ptr(),
-        tab["stage_thr"].data_ptr(), s0, s1, _build.stream_of(sum2d),
+        sum2d.data_ptr(), tilt2d.data_ptr(), int(tab["has_tilted"]), sum2d.shape[1],
+        inv_nf.data_ptr(), alive.data_ptr(), out.data_ptr(), passed0.data_ptr(), out_h,
+        out_w, cascade.win_h, cascade.win_w, tab["records"].data_ptr(), tab["pitch"],
+        records.TILE_H,
+        tab["stage_start"].data_ptr(), tab["stage_thr"].data_ptr(), s0, s1,
+        _build.stream_of(sum2d),
     )
     _build.check(code, "cct_stage")
     _build.LAUNCHES["stage"] += 1

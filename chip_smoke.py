@@ -48,6 +48,20 @@ fused engine's default), with the dense front and with the packed front
   (n) timing    per front: frames/s and phase table; both front kernels
                 and the list build timed on the shelf-packed canvas
 
+The tiled front and stage kernels at their edges:
+
+  (o) edges     kernels front and stage vs their twins on small canvases
+                whose window grid is one less than, equal to and one more
+                than two tiles each way, with every tile dead, every
+                window alive, one window alive in the last row and column
+                and a checkerboard: front over stages [1, 8), [3, 5) and
+                [4, 4); stage over [0, 30), [0, 1), [1, 30) and [5, 9) of
+                the upper body and over [0, 22) of the frontal face with
+                the integral canvas passed as the tilted one. Each kernel
+                twice on frame 0's 1080p inputs with equal outputs, and
+                the front's stages through the stage kernel (the same
+                tile kernel with its dense pass compiled in), timed
+
 and last, per kernel at its path's shapes: time against its twin, the
 least time the card could take (bytes over 3.35 TB/s or operations over
 67 TFLOP/s, the H100 SXM's published rates), and one PyTorch call that
@@ -145,6 +159,11 @@ def main():
     from cascadeclassifier_tpu_torch.detect.stage import stage
     from cascadeclassifier_tpu_torch.detect.tilted import segments, tilted
     from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml
+    from cascadeclassifier_tpu_torch.utils.edges import (
+        FRONT_RANGES,
+        STAGE_RANGES,
+        edge_mismatches,
+    )
     from cascadeclassifier_tpu_torch.utils.synth import synth_frame
 
     dev = torch.device("cuda:0")
@@ -363,6 +382,10 @@ def main():
     work["tilted"] = bound(2 * 4 * px_b.numel(), 5 * tilted_cells)
     work["stage"] = bound(2 * 4 * sb.numel() + 7 * plan_b.out_h * plan_b.out_w,
                           cascade_ops(cas_b, 0, stage_eval))
+    tree_evals = [n * cas_b.stages[i].ntrees for i, n in enumerate(stage_eval)]
+    print(f"(j) stage kernel's work on frame 0: {tree_evals[0]} tree evaluations in stage 0 "
+          f"(every window), {sum(tree_evals[1:])} in stages 1-{n_st - 1} (the windows that "
+          f"reach each stage)", flush=True)
 
     # ------------------------------------------------------------------
     # the frontal face on the shelf-packed plan: dense and packed front
@@ -466,6 +489,35 @@ def main():
     # plus the list
     work["packed_front"] = bound(10 * n_listed + 8 * n_live + 4,
                                  cascade_ops(cas, 1, front_eval_p))
+
+    # ------------------------------------------------------------------
+    # (o) the tiled kernels at their edges
+    t0 = time.perf_counter()
+    for label, cascade, ranges, use_stage in (
+        ("front, frontal face", cas, FRONT_RANGES, False),
+        ("stage, upper body", cas_b, STAGE_RANGES, True),
+        ("stage, frontal face, sum2d as tilt2d", cas, ((0, len(cas.stages)),), True),
+    ):
+        n_cases, n_alive, bad = edge_mismatches(cascade, ranges, dev, use_stage)
+        torch.cuda.synchronize()
+        check(not bad, f"(o) {label}: kernel != twin at {bad}")
+        print(f"(o) edges, {label}: {n_cases} cases (3 shapes x 4 masks x stage ranges "
+              f"{list(ranges)}) equal to the twin (tolerance: exact); {n_alive} survivors "
+              "in all", flush=True)
+    again = front(s_k, inv_nf, alive0, cas, 1, n_dense)
+    check(torch.equal(again, f_k), "(o) front kernel: two runs on the same inputs differ")
+    again = stage(sb, t_k, inv_b, alive_b, cas_b, 0, n_st)
+    check(torch.equal(again[0], a_k) and torch.equal(again[1], p0_k),
+          "(o) stage kernel: two runs on the same inputs differ")
+    via_stage = stage(s_k, s_k, inv_nf, alive0, cas, 1, n_dense)
+    check(torch.equal(via_stage[0], f_k) and not via_stage[1].any(),
+          "(o) the front's stages through the stage kernel != front kernel")
+    own_ms = cuda_ms(lambda: front(s_k, inv_nf, alive0, cas, 1, n_dense), 20)
+    via_ms = cuda_ms(lambda: stage(s_k, s_k, inv_nf, alive0, cas, 1, n_dense), 20)
+    print(f"(o) two runs of each kernel on frame 0's 1080p inputs are equal; stages "
+          f"1..{n_dense - 1} on the plain-stack canvas: front kernel {own_ms:.4f} ms, the "
+          f"same stages through the stage kernel {via_ms:.4f} ms; phase took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     meta = {
         "integral": ("cascadeclassifier_tpu_torch/csrc/integral.cu",

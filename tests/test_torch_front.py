@@ -30,6 +30,10 @@ from cascadeclassifier_tpu.detect.pyramid import build_plan  # noqa: E402
 from cascadeclassifier_tpu.models.xml_io import read_cascade_xml  # noqa: E402
 from cascadeclassifier_tpu_torch.convert import from_jax_packed  # noqa: E402
 from cascadeclassifier_tpu_torch.detect.front import front  # noqa: E402
+from cascadeclassifier_tpu_torch.utils.edges import (  # noqa: E402
+    FRONT_RANGES,
+    edge_mismatches,
+)
 
 HAAR_ALT = os.path.join(  # the port's vendored copy of OpenCV's file
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -128,3 +132,15 @@ def test_kernel_matches_twin_on_card(setup, cuda_device):
     want = front(*args, cas, 1, 8, impl="ref")
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_twin_at_tile_edges_on_card(setup, cuda_device):
+    """Window grids one less than, equal to and one more than two tiles
+    each way; every tile dead, every window alive, the last window alone
+    and a checkerboard; stages [1, 8), [3, 5) and [4, 4)."""
+    cas = from_jax_packed(setup["jpacked"])
+    n, survivors, bad = edge_mismatches(cas, FRONT_RANGES, cuda_device, use_stage=False)
+    torch.cuda.synchronize()
+    assert not bad
+    assert n == 36 and survivors > 0

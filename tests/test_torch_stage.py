@@ -46,6 +46,10 @@ from cascadeclassifier_tpu_torch.detect.detector import PackedCascade  # noqa: E
 from cascadeclassifier_tpu_torch.detect.stage import stage  # noqa: E402
 from cascadeclassifier_tpu_torch.models.model import FEATURE_LBP  # noqa: E402
 from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml  # noqa: E402
+from cascadeclassifier_tpu_torch.utils.edges import (  # noqa: E402
+    STAGE_RANGES,
+    edge_mismatches,
+)
 from cascadeclassifier_tpu_torch.utils.synth import synth_frame  # noqa: E402
 
 UPPERBODY = os.path.join(  # the port's vendored copy of OpenCV's file
@@ -169,7 +173,7 @@ def test_packing_of_tilted_cascades():
             np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
             np.testing.assert_array_equal(getattr(a, f), getattr(j, f))
     tab = ours.device_table("cpu")
-    assert tab["tilted"].dtype == torch.int32 and int(tab["tilted"].sum()) == 474
+    assert tab["has_tilted"] and tuple(tab["records"].shape) == (2423, 48)
 
 
 def test_packing_rejects_what_is_not_ported_or_escapes_the_window():
@@ -207,3 +211,21 @@ def test_kernel_matches_twin_on_card(setup, cuda_device):
         want = stage(*args, s["cas"], s0, s1, impl="ref")
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_kernel_matches_twin_at_tile_edges_on_card(setup, cuda_device):
+    """The front test's shapes and masks; stages [0, 30), [0, 1), [1, 30)
+    and [5, 9) with the tilted canvas, and every stage of the upright
+    frontal face with the integral canvas passed as the tilted one."""
+    n, survivors, bad = edge_mismatches(setup["cas"], STAGE_RANGES, cuda_device, use_stage=True)
+    torch.cuda.synchronize()
+    assert not bad
+    assert n == 48 and survivors > 0
+    frontal = PackedCascade.from_model(read_cascade_xml(
+        os.path.join(os.path.dirname(UPPERBODY), "haarcascade_frontalface_alt.xml")))
+    assert not frontal.has_tilted
+    n, _, bad = edge_mismatches(frontal, ((0, len(frontal.stages)),), cuda_device,
+                                use_stage=True)
+    torch.cuda.synchronize()
+    assert not bad and n == 12
