@@ -31,7 +31,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("integral.cu", "front.cu", "patchify.cu", "tilted.cu", "stage.cu",
            "packed_front.cu")
-HEADERS = ("cascade_tile.cuh",)  # included by front.cu and stage.cu
+HEADERS = ("cascade_tile.cuh",)  # included by front.cu, stage.cu and packed_front.cu
 NVCC_FLAGS = (
     "-O3",
     "--fmad=false",
@@ -52,15 +52,17 @@ _SIGNATURES = {
     # records, pitch, stage_start, stage_thr, s0, s1, stream
     "cct_front": [_P, _I, _P, _P, _P, _I, _I, _I, _I,
                   _P, _I, _P, _P, _I, _I, _P],
-    # canvas, canvas_w, inv, alive_in, alive_out, out_h, out_w, blk,
-    # nblk (device), nb_cap, rects, weights, tree params, stage_start,
-    # stage_thr, s0, s1, stream
-    "cct_packed_front": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I,
-                         _P, _P, _P, _P, _P, _I, _I, _P],
+    # canvas, canvas_w, inv, alive_in, alive_out, out_h, out_w, win_h, win_w,
+    # blk, nblk (device), nb_cap, records, pitch, stage_start, stage_thr, s0,
+    # s1, stream
+    "cct_packed_front": [_P, _I, _P, _P, _P, _I, _I, _I, _I,
+                         _P, _P, _I, _P, _I, _P, _P, _I,
+                         _I, _P],
     # canvas, canvas_h, canvas_w, r, c, n, cnt, ph, pw, out, stream
     "cct_patchify": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
-    # px, out, h, w, segments, n segments, padded width, stream
-    "cct_tilted": [_P, _P, _I, _I, _P, _I, _I, _P],
+    # px, out, h, w, segments, n segments, items, launch offsets (host),
+    # n launches, state, state row length, stream
+    "cct_tilted": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _P, _I, _P],
     # sum, tilt, has_tilt, canvas_w, inv, alive_in, alive_out, passed0, out_h,
     # out_w, win_h, win_w, records, pitch, tile_h, stage_start, stage_thr, s0,
     # s1, stream

@@ -1,7 +1,13 @@
-// The tiled cascade kernel behind front.cu and stage.cu: stump-Haar stages
-// [s0, s1) at the windows of one canvas tile per thread block.
+// The tiled cascade kernel behind front.cu, stage.cu and packed_front.cu:
+// stump-Haar stages [s0, s1) at the windows of one canvas tile per thread
+// block.
 //
 // One block owns kTileH x kTileW windows and does, in order:
+//   origin   where its tile lies: the Origin functor maps the block index to
+//            the tile's first window. GridOrigin tiles the whole window grid
+//            (front.cu, stage.cu); an origin that reads a tile list
+//            (packed_front.cu) may also send the whole block home before
+//            any barrier, with no memory touched
 //   skip     read the tile's alive_in bytes; when no window is alive (and
 //            stage 0 is not due at every window) write zeros and leave,
 //            with the canvas untouched
@@ -54,9 +60,10 @@
 // tree in tree order from 0.0f, pass iff ssum >= stage_thr. Built with
 // --fmad=false, so no multiply-add is contracted.
 //
-// Every thread reaches every barrier: the tile skip leaves with the whole
-// block, partial tiles at the right and bottom edges are masked, and the
-// stage loop breaks on a count that all threads read after a barrier.
+// Every thread reaches every barrier: the origin and the tile skip leave
+// with the whole block, partial tiles at the right and bottom edges are
+// masked, and the stage loop breaks on a count that all threads read after
+// a barrier.
 
 #pragma once
 
@@ -208,6 +215,19 @@ __device__ __forceinline__ void list_stage(const Frame& f, const Cascade& cas,
   }
 }
 
+// The tile of block (blockIdx.x, blockIdx.y) in a grid that covers every
+// window of the frame.
+struct GridOrigin {
+  __host__ dim3 grid(const Frame& f, int tile_h) const {
+    return dim3((f.out_w + kTileW - 1) / kTileW, (f.out_h + tile_h - 1) / tile_h);
+  }
+  __device__ __forceinline__ bool operator()(const Frame&, int tile_h, int& r0, int& c0) const {
+    r0 = blockIdx.y * tile_h;
+    c0 = blockIdx.x * kTileW;
+    return true;
+  }
+};
+
 template <int kTileH>
 constexpr size_t shared_bytes(int pitch, int win_h, int tiles) {
   // the patches, two window lists (16 bits an entry), the byte mask
@@ -215,9 +235,12 @@ constexpr size_t shared_bytes(int pitch, int win_h, int tiles) {
          static_cast<size_t>(kTileH) * kTileW * (2 + 2 + 1);
 }
 
-template <int kPitch, int kTileH, int kThreads, bool kStage>
+// Origin: grid(f, tile_h) on the host; on the device operator()(f, tile_h,
+// r0, c0) gives the block's first window, or false when the block has no
+// tile (the same answer in every thread of the block).
+template <int kPitch, int kTileH, int kThreads, bool kStage, class Origin>
 __global__ void __launch_bounds__(kThreads)
-    tile_kernel(Frame f, Cascade cas, int s0, int s1) {
+    tile_kernel(Frame f, Cascade cas, int s0, int s1, Origin origin) {
   constexpr int kWindows = kTileH * kTileW;
   constexpr int kWarpsX = kTileW / 32;
   constexpr int kWarpsY = kThreads / 32 / kWarpsX;
@@ -238,7 +261,8 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int col = (warp % kWarpsX) * 32 + lane;
   const int row0 = (warp / kWarpsX) * J;
-  const int r0 = blockIdx.y * kTileH, c0 = blockIdx.x * kTileW;
+  int r0, c0;
+  if (!origin(f, kTileH, r0, c0)) return;
   const size_t g0 = static_cast<size_t>(r0 + row0) * f.out_w + c0 + col;  // window (row0, col)
   const bool dense0 = kStage && s0 == 0 && s1 > 0;
 
@@ -361,34 +385,35 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Launches the kernel for one pitch; returns the first CUDA error.
-template <int kPitch, int kTileH, int kThreads, bool kStage>
-int launch(const Frame& f, const Cascade& cas, int s0, int s1, cudaStream_t stream) {
-  const auto kernel = tile_kernel<kPitch, kTileH, kThreads, kStage>;
+template <int kPitch, int kTileH, int kThreads, bool kStage, class Origin>
+int launch(const Frame& f, const Cascade& cas, int s0, int s1, const Origin& origin,
+           cudaStream_t stream) {
+  const auto kernel = tile_kernel<kPitch, kTileH, kThreads, kStage, Origin>;
   const size_t bytes = shared_bytes<kTileH>(kPitch, f.win_h, (kStage && f.has_tilt) ? 2 : 1);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((f.out_w + kTileW - 1) / kTileW, (f.out_h + kTileH - 1) / kTileH);
+  const dim3 grid = origin.grid(f, kTileH);
   if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<grid, kThreads, bytes, stream>>>(f, cas, s0, s1);
+  kernel<<<grid, kThreads, bytes, stream>>>(f, cas, s0, s1, origin);
   return static_cast<int>(cudaGetLastError());
 }
 
 // pitch is the one the records were resolved against (records.py's
 // tile_pitch); a pitch that was not compiled is refused.
-template <int kTileH, int kThreads, bool kStage>
+template <int kTileH, int kThreads, bool kStage, class Origin = GridOrigin>
 int dispatch(int pitch, const Frame& f, const Cascade& cas, int s0, int s1,
-             cudaStream_t stream) {
+             cudaStream_t stream, const Origin& origin = Origin()) {
   if (f.out_h <= 0 || f.out_w <= 0 || s0 < 0 || s1 < s0 || kTileW + f.win_w > pitch) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (pitch) {
     case 152:
-      return launch<152, kTileH, kThreads, kStage>(f, cas, s0, s1, stream);
+      return launch<152, kTileH, kThreads, kStage>(f, cas, s0, s1, origin, stream);
     case 200:
-      return launch<200, kTileH, kThreads, kStage>(f, cas, s0, s1, stream);
+      return launch<200, kTileH, kThreads, kStage>(f, cas, s0, s1, origin, stream);
     case 264:
-      return launch<264, kTileH, kThreads, kStage>(f, cas, s0, s1, stream);
+      return launch<264, kTileH, kThreads, kStage>(f, cas, s0, s1, origin, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -101,11 +101,10 @@ class PackedCascade:
     def device_table(self, device) -> dict:
         """Every tree's parameters on the device, built once per device:
         the packed 48-byte tree records (``detect/records.py``) that the
-        front and stage kernels read, with the shared-memory pitch they
-        are resolved against, and the flat arrays of the packed front."""
+        front, packed front and stage kernels read, with the shared-memory
+        pitch they are resolved against."""
         key = str(torch.device(device))
         if key not in self._tables:
-            cat = np.concatenate
             st = self.stages
             start = np.concatenate([[0], np.cumsum([s.ntrees for s in st])])
 
@@ -117,14 +116,6 @@ class PackedCascade:
                 records=dev(rec.view(np.uint8).reshape(len(rec), -1), torch.uint8),
                 pitch=tile_pitch(self.win_w),
                 has_tilted=self.has_tilted,
-                rects=dev(cat([s.feat_rects for s in st]), torch.int32),
-                weights=dev(cat([s.weights for s in st]), torch.float32),
-                tparam=dev(
-                    np.stack([cat([s.thr for s in st]),
-                              cat([s.left_leaf for s in st]),
-                              cat([s.right_leaf for s in st])], axis=1),
-                    torch.float32,
-                ),
                 stage_start=dev(start, torch.int32),
                 stage_thr=dev([s.threshold for s in st], torch.float32),
             )
@@ -282,16 +273,26 @@ class TorchDetector:
 
     def detect_multi_scale(self, img: np.ndarray, scale_factor: float = 1.1,
                            min_neighbors: int = 3, min_size=None,
-                           max_size=None) -> np.ndarray:
-        """Returns (N, 4) int32 rects (x, y, w, h) in image coords."""
+                           max_size=None, max_det: int = 1 << 16) -> np.ndarray:
+        """Returns (N, 4) int32 rects (x, y, w, h) in image coords. More
+        than max_det raw windows (before grouping) raise RuntimeError, as
+        the JAX package's detector does."""
         plan, idx = self.raw_windows(img, scale_factor, min_size, max_size)
+        if len(idx) > max_det:
+            raise RuntimeError(
+                f"{len(idx)} raw detections exceed max_det={max_det}; "
+                "pass a larger max_det"
+            )
         return self.group(plan, idx, min_neighbors)
 
     def detect_multi_scale_batch(self, frames, scale_factor: float = 1.1,
                                  min_neighbors: int = 3, min_size=None,
-                                 max_size=None) -> list:
-        """detect_multi_scale over a sequence of frames, one at a time."""
+                                 max_size=None, max_det: int = 1 << 14) -> list:
+        """detect_multi_scale over a sequence of frames, one at a time;
+        max_det is raised to at least 1 << 16, as the JAX package's
+        frame-at-a-time batch path raises it."""
         return [
-            self.detect_multi_scale(f, scale_factor, min_neighbors, min_size, max_size)
+            self.detect_multi_scale(f, scale_factor, min_neighbors, min_size, max_size,
+                                    max_det=max(max_det, 1 << 16))
             for f in frames
         ]

@@ -7,8 +7,9 @@ make_packed_plane_front_fn`` (ystep-2 anchors) and
 As ``front.py`` does for the dense kernels, one kernel,
 ``csrc/packed_front.cu``, serves both on the canvas-layout mask: its
 ystep-2 rows already hold only even anchors. The block list is built on
-the device from the prep mask, with no host synchronization; the kernel
-launches one thread block per list entry and the entries past ``nblk``
+the device from the prep mask, with no host synchronization; the kernel is
+the front's tile kernel with its tiles' origins read from the list (four
+16x128 tiles per entry), and the thread blocks of entries past ``nblk``
 return at once. Windows outside the listed blocks keep their input value
 (the JAX kernels alias the mask input to the output).
 
@@ -22,9 +23,11 @@ import torch
 
 from cascadeclassifier_tpu_torch import _build
 from cascadeclassifier_tpu_torch.detect.front import check_inputs, check_stages, front_ref
+from cascadeclassifier_tpu_torch.detect.records import TILE_H, TILE_W
 
 BLK_H = 16
 BLK_W = 512
+assert BLK_H == TILE_H and BLK_W % TILE_W == 0  # a tile never straddles two blocks
 
 
 def block_grid(out_h: int, out_w: int):
@@ -67,6 +70,24 @@ def listed_windows(blk, nblk, out_h: int, out_w: int):
     return grid.repeat_interleave(BLK_H, 0).repeat_interleave(BLK_W, 1)[:out_h, :out_w]
 
 
+def listed_tiles(blk, nblk: int, out_h: int, out_w: int) -> list:
+    """The kernel's grid in numpy: (r0, c0, rows, cols) of the tile that
+    thread block (i, x) works on, for every i < len(blk) and x <
+    BLK_W // TILE_W that does not return at once. A block returns when
+    i >= nblk, when blk[i] lies outside the mask's block grid, or when
+    its tile starts right of the last window column."""
+    nbr, nbc = block_grid(out_h, out_w)
+    tiles = []
+    for i, (bi, bj) in enumerate(blk):
+        if i >= nblk or not (0 <= bi < nbr and 0 <= bj < nbc):
+            continue
+        for x in range(BLK_W // TILE_W):
+            r0, c0 = int(bi) * BLK_H, int(bj) * BLK_W + x * TILE_W
+            if c0 < out_w:
+                tiles.append((r0, c0, min(TILE_H, out_h - r0), min(TILE_W, out_w - c0)))
+    return tiles
+
+
 def packed_front_ref(sum2d, inv_nf, alive, blk, nblk, cascade, s0, s1):
     """Plain twin: inside the listed blocks alive ∧ every stage in
     [s0, s1) passed (dense ``stage_pass`` per stage); alive elsewhere."""
@@ -96,10 +117,9 @@ def packed_front(sum2d, inv_nf, alive, blk, nblk, cascade, s0: int, s1: int,
     out = alive.clone()
     code = _build.lib().cct_packed_front(
         sum2d.data_ptr(), sum2d.shape[1], inv_nf.data_ptr(),
-        alive.data_ptr(), out.data_ptr(), out_h, out_w,
+        alive.data_ptr(), out.data_ptr(), out_h, out_w, cascade.win_h, cascade.win_w,
         blk.data_ptr(), nblk.data_ptr(), blk.shape[0],
-        tab["rects"].data_ptr(), tab["weights"].data_ptr(),
-        tab["tparam"].data_ptr(), tab["stage_start"].data_ptr(),
+        tab["records"].data_ptr(), tab["pitch"], tab["stage_start"].data_ptr(),
         tab["stage_thr"].data_ptr(), s0, s1, _build.stream_of(sum2d),
     )
     _build.check(code, "cct_packed_front")

@@ -1,12 +1,17 @@
-"""Edge cases of the tiled front and stage kernels against their twins.
+"""Edge cases of the tiled front, packed front and stage kernels and of
+the tilted kernel against their twins.
 
-Small one-block canvases whose window grid is one less than, equal to
-and one more than two tiles each way; masks that leave every tile dead,
-every window alive, one window alive in the last row and column, and a
-checkerboard. ``chip_smoke.py`` and the card's tests run the same cases.
-The pixels are a synthetic frame (``utils/synth.py``, integer-only
-numpy, seeded by the frame number), taken through the port's own
-integral, tilted integral and variance gate on the given device.
+Front and stage: small one-block canvases whose window grid is one less
+than, equal to and one more than two tiles each way; masks that leave
+every tile dead, every window alive, one window alive in the last row and
+column, and a checkerboard. The packed front takes the same and a grid
+one column wider than a listed block, each with six block lists
+(``block_lists``). The pixels are a synthetic frame (``utils/synth.py``,
+integer-only numpy, seeded by the frame number), taken through the
+port's own integral, tilted integral and variance gate on the given
+device. The tilted kernel takes random canvases with runs of rows around
+its chunks and widths around its strips (``tilted_edge_cases``).
+``chip_smoke.py`` and the card's tests run the same cases.
 """
 
 from __future__ import annotations
@@ -17,14 +22,30 @@ import torch
 from cascadeclassifier_tpu_torch.detect.dense import dense_variance_gate
 from cascadeclassifier_tpu_torch.detect.front import front
 from cascadeclassifier_tpu_torch.detect.integral import integral
+from cascadeclassifier_tpu_torch.detect.packed_front import (
+    BLK_W,
+    block_grid,
+    live_block_list,
+    packed_front,
+)
 from cascadeclassifier_tpu_torch.detect.records import TILE_H, TILE_W
 from cascadeclassifier_tpu_torch.detect.stage import stage
-from cascadeclassifier_tpu_torch.detect.tilted import tilted
+from cascadeclassifier_tpu_torch.detect.tilted import CHUNK_ROWS, STRIP_COLS, tilted
 from cascadeclassifier_tpu_torch.utils.synth import synth_frame
 
 SHAPES = tuple((2 * TILE_H + d, 2 * TILE_W + d) for d in (-1, 0, 1))
 FRONT_RANGES = ((1, 8), (3, 5), (4, 4))
 STAGE_RANGES = ((0, 30), (0, 1), (1, 30), (5, 9))
+# the last grid crosses a listed block's right edge by one column
+PACKED_SHAPES = SHAPES + ((2 * TILE_H + 1, BLK_W + 1),)
+PACKED_RANGES = ((1, 8), (4, 4))
+# Runs of canvas rows, each but the first led by its top. Computed rows: 3
+# (row 0 is no top), 0 (a top alone), 1, 2, one short of a chunk, a chunk,
+# one past it, two chunks and two rows, and 0 (a top in the last row).
+TILTED_RUNS = (3, 1, 2, 3, CHUNK_ROWS, CHUNK_ROWS + 1, CHUNK_ROWS + 2, 2 * CHUNK_ROWS + 3, 1)
+TILTED_WIDTHS = (1, 37, STRIP_COLS - 1, STRIP_COLS, STRIP_COLS + 1, 2 * STRIP_COLS - 1,
+                 2 * STRIP_COLS + 1)
+TILTED_PADS = (0, 3, 2 * CHUNK_ROWS + 4, 500)  # the third: the tallest run's rows + 1, exact
 
 
 def edge_masks(out_h: int, out_w: int, device) -> dict:
@@ -82,3 +103,76 @@ def edge_mismatches(cascade, ranges, device, use_stage: bool):
                 if not all(torch.equal(g, w) for g, w in zip(got, want)):
                     bad.append(f"{out_h}x{out_w} windows, {name}, stages [{s0}, {s1})")
     return n, survivors, bad
+
+
+def block_lists(alive) -> dict:
+    """name → (blk, nblk) for a mask: the live blocks as the engine lists
+    them; every block; every block with nblk one short; nblk 0; entries
+    outside the block grid ahead of every block; every block in reverse
+    order."""
+    dev = alive.device
+    every, _ = live_block_list(torch.ones_like(alive))
+    nb = every.shape[0]
+    nbr, nbc = block_grid(*alive.shape)
+    stray = torch.tensor([[nbr, 0], [0, nbc], [-1, 0], [0, -1]], dtype=torch.int32, device=dev)
+
+    def count(n):
+        return torch.tensor([n], dtype=torch.int32, device=dev)
+
+    return {
+        "live blocks": live_block_list(alive),
+        "every block": (every, count(nb)),
+        "cut short": (every, count(nb - 1)),
+        "nblk 0": (every, count(0)),
+        "stray entries": (torch.cat([stray, every]), count(nb + len(stray))),
+        "reverse order": (every.flip(0).contiguous(), count(nb)),
+    }
+
+
+def packed_edge_mismatches(cascade, device):
+    """packed_front over every shape x mask x block list x stage range
+    against its twin, and against ``front`` where every block is listed
+    → (cases run, survivors summed, descriptions of the cases that
+    differ)."""
+    n, survivors, bad = 0, 0, []
+    for k, (out_h, out_w) in enumerate(PACKED_SHAPES):
+        sum2d, _, inv_nf = edge_inputs(k, out_h, out_w, cascade, device, False)
+        for name, alive in edge_masks(out_h, out_w, device).items():
+            for lname, (blk, nblk) in block_lists(alive).items():
+                for s0, s1 in PACKED_RANGES:
+                    args = (sum2d, inv_nf, alive, blk, nblk, cascade, s0, s1)
+                    got = packed_front(*args)
+                    same = torch.equal(got, packed_front(*args, impl="ref"))
+                    if lname in ("every block", "reverse order", "stray entries"):
+                        same = same and torch.equal(
+                            got, front(sum2d, inv_nf, alive, cascade, s0, s1))
+                    n += 1
+                    survivors += int(got.sum())
+                    if not same:
+                        bad.append(f"{out_h}x{out_w} windows, {name}, {lname}, "
+                                   f"stages [{s0}, {s1})")
+    return n, survivors, bad
+
+
+def tilted_edge_cases():
+    """(px (rows, w) int32 numpy, is_top, pad) per width and pad. The
+    pixels are random everywhere, block tops and column 0 included: the
+    kernel and the twin both skip those cells."""
+    is_top = np.zeros(sum(TILTED_RUNS), bool)
+    is_top[np.cumsum(TILTED_RUNS)[:-1]] = True
+    for i, w in enumerate(TILTED_WIDTHS):
+        px = np.random.default_rng(100 + i).integers(0, 256, (len(is_top), w)).astype(np.int32)
+        for pad in TILTED_PADS:
+            yield px, is_top, pad
+
+
+def tilted_edge_mismatches(device):
+    """tilted over tilted_edge_cases() against its twin → (cases run,
+    descriptions of the cases that differ)."""
+    n, bad = 0, []
+    for px, is_top, pad in tilted_edge_cases():
+        pxd = torch.from_numpy(px).to(device)
+        n += 1
+        if not torch.equal(tilted(pxd, is_top, pad), tilted(pxd, is_top, pad, impl="ref")):
+            bad.append(f"{px.shape[1]} columns, pad {pad}")
+    return n, bad

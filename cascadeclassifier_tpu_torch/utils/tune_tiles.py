@@ -1,23 +1,31 @@
-"""Times the tiled front and stage kernels under other tile geometries.
+"""Times the tiled front, packed front and stage kernels under other tile
+geometries, and the tilted kernel under other chunk and strip sizes.
 
     python3 -m cascadeclassifier_tpu_torch.utils.tune_tiles [--quick] [-DNAME=VALUE ...]
 
 Needs a CUDA device and nvcc. On 1080p synthetic frame 0 at scaleFactor
 1.1 it builds the kernels once per geometry (tile rows and threads a
 block, the macros CCT_FRONT_TILE_H, CCT_FRONT_THREADS, CCT_STAGE_TILE_H,
-CCT_STAGE_THREADS of ``csrc/front.cu`` and ``csrc/stage.cu``) and prints,
-per geometry, the device time of
+CCT_STAGE_THREADS and CCT_PACKED_THREADS of ``csrc/front.cu``,
+``csrc/stage.cu`` and ``csrc/packed_front.cu``; rows a chunk and columns a
+strip, CCT_TILTED_CHUNK and CCT_TILTED_STRIP of ``csrc/tilted.cu``) and
+prints, per geometry, the device time of
 
   front        stages 1..n_dense-1 of the frontal face on its prep mask
   stage        all 30 stages of the upper body on gate AND grid
   stage 0      its dense pass alone (stages [0, 1))
   stage 1-29   its compacted passes alone, on the mask stage 0 leaves
+  packed_front the front's stages over the live-block list of the
+               shelf-packed canvas, beside front there and the list build
+  tilted       the tilted integral of the upper body's canvas, and of its
+               first pyramid level alone
 
 after checking each output against the default geometry's. Further
 -D flags on the command line are passed to every build; --quick times the
 default geometry alone. The geometry the sources default to is the first
-line; ``detect/records.py::TILE_H`` must
-name the stage kernel's tile rows.
+line; ``detect/records.py::TILE_H`` must name the stage kernel's tile
+rows, ``detect/tilted.py::CHUNK_ROWS`` and ``STRIP_COLS`` the tilted
+kernel's chunk and strip.
 """
 
 from __future__ import annotations
@@ -30,10 +38,12 @@ import torch
 
 from cascadeclassifier_tpu_torch import _build
 from cascadeclassifier_tpu_torch.detect import records
+from cascadeclassifier_tpu_torch.detect import tilted as tilted_mod
 from cascadeclassifier_tpu_torch.detect.dense import dense_variance_gate
 from cascadeclassifier_tpu_torch.detect.detector import TorchDetector, build_pixel_canvas
 from cascadeclassifier_tpu_torch.detect.front import front
 from cascadeclassifier_tpu_torch.detect.integral import integral
+from cascadeclassifier_tpu_torch.detect.packed_front import live_block_list, packed_front
 from cascadeclassifier_tpu_torch.detect.stage import stage
 from cascadeclassifier_tpu_torch.detect.tilted import tilted
 from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml
@@ -43,6 +53,9 @@ FRONT_GEOMETRIES = ((16, 256), (16, 128), (16, 512), (8, 128), (8, 256), (4, 128
                     (32, 512))
 STAGE_GEOMETRIES = ((16, 256), (16, 512), (16, 128), (8, 128), (8, 256), (8, 512), (32, 512),
                     (32, 1024))
+PACKED_THREADS = (256, 128, 512)
+TILTED_GEOMETRIES = ((64, 256), (64, 128), (64, 384), (64, 512), (32, 192), (32, 448),
+                     (96, 320), (128, 256), (16, 224))  # (rows a chunk, columns a strip)
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -58,11 +71,13 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def rebuild(flags, cascades, stage_tile_h: int):
+def rebuild(flags, cascades, stage_tile_h: int, tilted_geometry=TILTED_GEOMETRIES[0]):
     """Point the package at a build with these extra nvcc flags."""
     _build.NVCC_FLAGS = BASE_FLAGS + tuple(flags)
     _build._lib = None
     records.TILE_H = stage_tile_h
+    tilted_mod.CHUNK_ROWS, tilted_mod.STRIP_COLS = tilted_geometry
+    tilted_mod._device_work.cache_clear()
     for cas in cascades:
         cas._tables.clear()
     _build.lib()
@@ -95,13 +110,29 @@ def main(extra):
     levels_b, grid_b = det_b.engine._plan_tensors(plan_b)[:2]
     px_b = build_pixel_canvas(img, plan_b, levels_b)
     sum_b, sq_b = integral(px_b)
-    tilt_b = tilted(px_b, plan_b.is_top, int(plan_b.scaled_h.max()) + 1)
+    pad_b = int(plan_b.scaled_h.max()) + 1
+    tilt_b = tilted(px_b, plan_b.is_top, pad_b)
+    first_b = int(plan_b.block_top[1])  # the first pyramid level's rows alone
+    px_b0, top_b0 = px_b[:first_b].contiguous(), plan_b.is_top[:first_b]
     gate_b, inv_b = dense_variance_gate(sum_b, sq_b, cas_b.win_w, cas_b.win_h,
                                         plan_b.out_h, plan_b.out_w)
     alive_b = gate_b & grid_b
 
+    det_p = TorchDetector(det.model, device=dev)  # the shelf-packed plan
+    plan_p = det_p.plan_for(1920, 1080, 1.1, None, None)
+    sum_p, sq_p = integral(build_pixel_canvas(img, plan_p,
+                                              det_p.engine._plan_tensors(plan_p)[0]))
+    inv_p, alive_p = det_p.engine.prep(sum_p, sq_p, plan_p)
+    blk, nblk = live_block_list(alive_p)
+
     def run_front():
         return front(sum_f, inv_f, alive_f, cas, 1, eng.n_dense)
+
+    def run_packed():
+        return packed_front(sum_p, inv_p, alive_p, blk, nblk, cas, 1, eng.n_dense)
+
+    def run_tilted():
+        return tilted(px_b, plan_b.is_top, pad_b)
 
     def run_stage(s0=0, s1=n_st, alive=alive_b):
         return stage(sum_b, tilt_b, inv_b, alive, cas_b, s0, s1)
@@ -129,6 +160,26 @@ def main(extra):
               f"stage 0 {cuda_ms(lambda: run_stage(0, 1)):.4f} ms, stages 1-{n_st - 1} "
               f"{cuda_ms(lambda: run_stage(1, n_st, after0)):.4f} ms"
               f"{'' if same else '  OUTPUT DIFFERS'}", flush=True)
+    rebuild(extra, (cas, cas_b), STAGE_GEOMETRIES[0][0])
+    want_p = front(sum_p, inv_p, alive_p, cas, 1, eng.n_dense)
+    print(f"shelf-packed canvas: front "
+          f"{cuda_ms(lambda: front(sum_p, inv_p, alive_p, cas, 1, eng.n_dense)):.4f} ms, "
+          f"live-block list {cuda_ms(lambda: live_block_list(alive_p)):.4f} ms "
+          f"({int(nblk[0])} of {blk.shape[0]} blocks)", flush=True)
+    for nt in PACKED_THREADS[: 1 if quick else None]:
+        rebuild([f"-DCCT_PACKED_THREADS={nt}", *extra], (cas, cas_b), STAGE_GEOMETRIES[0][0])
+        same = torch.equal(run_packed(), want_p)
+        print(f"packed_front 16 x 128 windows, {nt:4d} threads: {cuda_ms(run_packed):.4f} ms"
+              f"{'' if same else '  OUTPUT DIFFERS'}", flush=True)
+    for rows, cols in TILTED_GEOMETRIES[: 1 if quick else None]:
+        rebuild([f"-DCCT_TILTED_CHUNK={rows}", f"-DCCT_TILTED_STRIP={cols}", *extra],
+                (cas, cas_b), STAGE_GEOMETRIES[0][0], (rows, cols))
+        same = torch.equal(run_tilted(), tilt_b)
+        print(f"tilted {rows:3d} rows a chunk, {cols:3d} columns a strip "
+              f"({cols + 2 * rows:4d} threads): {cuda_ms(run_tilted):.4f} ms, the first level "
+              f"alone {cuda_ms(lambda: tilted(px_b0, top_b0, pad_b)):.4f} ms"
+              f"{'' if same else '  OUTPUT DIFFERS'}", flush=True)
+    rebuild(extra, (cas, cas_b), STAGE_GEOMETRIES[0][0])
 
 
 BASE_FLAGS = _build.NVCC_FLAGS

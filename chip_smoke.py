@@ -23,7 +23,8 @@ TorchDetector on cuda:0, on 1920x1080 synthetic frames at scaleFactor
 The upper-body path (haarcascade_upperbody.xml, 30 stages with tilted
 features, engine "pallas"):
 
-  (g) tilted    kernel tilted vs its twin on frame 0's canvas
+  (g) tilted    kernel tilted vs its twin on frame 0's canvas, at the
+                engine's pad and at pads too small to be exact
   (h) stage     kernel stage vs its twin over stages 0-29 (alive and
                 stage 0's pass mask), and over the chunk 1-29
   (i) e2e       frames 0 and 1 through the kernels equal the twin path
@@ -48,7 +49,7 @@ fused engine's default), with the dense front and with the packed front
   (n) timing    per front: frames/s and phase table; both front kernels
                 and the list build timed on the shelf-packed canvas
 
-The tiled front and stage kernels at their edges:
+The tiled kernels and the tilted kernel at their edges:
 
   (o) edges     kernels front and stage vs their twins on small canvases
                 whose window grid is one less than, equal to and one more
@@ -57,10 +58,19 @@ The tiled front and stage kernels at their edges:
                 and a checkerboard: front over stages [1, 8), [3, 5) and
                 [4, 4); stage over [0, 30), [0, 1), [1, 30) and [5, 9) of
                 the upper body and over [0, 22) of the frontal face with
-                the integral canvas passed as the tilted one. Each kernel
-                twice on frame 0's 1080p inputs with equal outputs, and
-                the front's stages through the stage kernel (the same
-                tile kernel with its dense pass compiled in), timed
+                the integral canvas passed as the tilted one. Kernel
+                packed_front vs its twin on the same grids and one a
+                column wider than a listed block, each mask with six
+                block lists (the live blocks, every block, one short,
+                nblk 0, entries outside the grid, reverse order), and vs
+                kernel front where every block is listed. Kernel tilted
+                vs its twin on canvases with runs of 1, 2 and 3 rows, runs
+                around a chunk of rows, a top in the last row and row 0
+                no top, at widths around its strips and pads 0, 3, exact
+                and 500. Each kernel twice on frame 0's 1080p inputs with
+                equal outputs, and the front's stages through the stage
+                kernel (the same tile kernel with its dense pass compiled
+                in), timed
 
 and last, per kernel at its path's shapes: time against its twin, the
 least time the card could take (bytes over 3.35 TB/s or operations over
@@ -157,12 +167,14 @@ def main():
     )
     from cascadeclassifier_tpu_torch.detect.patchify import patchify
     from cascadeclassifier_tpu_torch.detect.stage import stage
-    from cascadeclassifier_tpu_torch.detect.tilted import segments, tilted
+    from cascadeclassifier_tpu_torch.detect.tilted import tilted
     from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml
     from cascadeclassifier_tpu_torch.utils.edges import (
         FRONT_RANGES,
         STAGE_RANGES,
         edge_mismatches,
+        packed_edge_mismatches,
+        tilted_edge_mismatches,
     )
     from cascadeclassifier_tpu_torch.utils.synth import synth_frame
 
@@ -314,8 +326,16 @@ def main():
     torch.cuda.synchronize()
     errs["tilted"] = max_abs_err(t_k, t_r)
     check(torch.equal(t_k, t_r), "tilted kernel != twin")
+    for small in (3, 0):  # too small to be exact: the twin's truncation has to come out too
+        t_s = tilted(px_b, plan_b.is_top, small)
+        t_sr = tilted(px_b, plan_b.is_top, small, impl="ref")
+        torch.cuda.synchronize()
+        errs["tilted"] = max(errs["tilted"], max_abs_err(t_s, t_sr))
+        check(torch.equal(t_s, t_sr), f"tilted kernel != twin at pad {small}")
+        check(not torch.equal(t_s, t_k), f"pad {small} changed nothing: the check is vacuous")
     print(f"(g) tilted: canvas {tuple(px_b.shape)}, {len(plan_b.scales)} blocks, equal to the "
-          f"twin (tolerance: exact, max_abs_err {errs['tilted']})", flush=True)
+          f"twin at pad {pad} and at pads 3 and 0 (tolerance: exact, max_abs_err "
+          f"{errs['tilted']})", flush=True)
 
     # (h) stage
     sb, qb = integral(px_b)
@@ -376,10 +396,8 @@ def main():
     timed["stage"] = (lambda: stage(sb, t_k, inv_b, alive_b, cas_b, 0, n_st),
                       lambda: stage(sb, t_k, inv_b, alive_b, cas_b, 0, n_st, impl="ref"),
                       None, 1)
-    seg = segments(plan_b.is_top, pad)
-    # per padded cell: two neighbours, T[y-2] and two pixels
-    tilted_cells = int(((seg[:, 1] - seg[:, 0]) * (px_b.shape[1] + 2 * seg[:, 2])).sum())
-    work["tilted"] = bound(2 * 4 * px_b.numel(), 5 * tilted_cells)
+    # per canvas cell: two neighbours, T[y-2] and two pixels
+    work["tilted"] = bound(2 * 4 * px_b.numel(), 5 * px_b.numel())
     work["stage"] = bound(2 * 4 * sb.numel() + 7 * plan_b.out_h * plan_b.out_w,
                           cascade_ops(cas_b, 0, stage_eval))
     tree_evals = [n * cas_b.stages[i].ntrees for i, n in enumerate(stage_eval)]
@@ -477,7 +495,9 @@ def main():
     packed_ms = cuda_ms(lambda: packed_front(sp_k, inv_p, alive_p, blk, nblk, cas, 1, n_dense),
                         20)
     print(f"(n) shelf-packed canvas, frame 0: front kernel {dense_ms:.4f} ms, packed_front "
-          f"kernel {packed_ms:.4f} ms, live-block list {blk_ms:.4f} ms", flush=True)
+          f"kernel {packed_ms:.4f} ms ({packed_ms / dense_ms:.2f} x the front), live-block "
+          f"list {blk_ms:.4f} ms (list and packed_front {(blk_ms + packed_ms) / dense_ms:.2f} x "
+          "the front)", flush=True)
     front_eval_p = [n_prep_p] + [
         int(front(sp_k, inv_p, alive_p, cas, 1, s).sum()) for s in range(2, n_dense)
     ]
@@ -504,8 +524,23 @@ def main():
         print(f"(o) edges, {label}: {n_cases} cases (3 shapes x 4 masks x stage ranges "
               f"{list(ranges)}) equal to the twin (tolerance: exact); {n_alive} survivors "
               "in all", flush=True)
+    n_cases, n_alive, bad = packed_edge_mismatches(cas, dev)
+    torch.cuda.synchronize()
+    check(not bad, f"(o) packed_front: kernel != twin or != front at {bad}")
+    print(f"(o) edges, packed_front, frontal face: {n_cases} cases (4 shapes x 4 masks x 6 "
+          f"block lists x 2 stage ranges) equal to the twin, and to the front kernel where "
+          f"every block is listed (tolerance: exact); {n_alive} survivors in all", flush=True)
+    n_cases, bad = tilted_edge_mismatches(dev)
+    torch.cuda.synchronize()
+    check(not bad, f"(o) tilted: kernel != twin at {bad}")
+    print(f"(o) edges, tilted: {n_cases} cases (7 widths x 4 pads on a canvas of 9 runs of "
+          "rows) equal to the twin (tolerance: exact)", flush=True)
     again = front(s_k, inv_nf, alive0, cas, 1, n_dense)
     check(torch.equal(again, f_k), "(o) front kernel: two runs on the same inputs differ")
+    again = packed_front(sp_k, inv_p, alive_p, blk, nblk, cas, 1, n_dense)
+    check(torch.equal(again, pf_k), "(o) packed_front kernel: two runs on the same inputs differ")
+    again = tilted(px_b, plan_b.is_top, pad)
+    check(torch.equal(again, t_k), "(o) tilted kernel: two runs on the same inputs differ")
     again = stage(sb, t_k, inv_b, alive_b, cas_b, 0, n_st)
     check(torch.equal(again[0], a_k) and torch.equal(again[1], p0_k),
           "(o) stage kernel: two runs on the same inputs differ")

@@ -154,7 +154,7 @@ def test_packed_cascade_matches_original_and_conversion():
         for f in ("feat_rects", "weights", "thr", "left_leaf", "right_leaf"):
             np.testing.assert_array_equal(getattr(a, f), getattr(j, f))
     tab = ours.device_table("cpu")
-    assert tuple(tab["rects"].shape) == (2135, 3, 4)
+    assert tuple(tab["records"].shape) == (2135, 48)
     assert tab["stage_start"].tolist()[-1] == 2135
 
 

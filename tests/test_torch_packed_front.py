@@ -39,10 +39,19 @@ from cascadeclassifier_tpu_torch.detect.packed_front import (  # noqa: E402
     BLK_H,
     BLK_W,
     block_grid,
+    listed_tiles,
     listed_windows,
     live_block_list,
     packed_front,
     packed_front_ref,
+)
+
+from cascadeclassifier_tpu_torch.detect.records import TILE_H, TILE_W  # noqa: E402
+from cascadeclassifier_tpu_torch.utils.edges import (  # noqa: E402
+    PACKED_SHAPES,
+    block_lists,
+    edge_masks,
+    packed_edge_mismatches,
 )
 
 HAAR_ALT = os.path.join(  # the port's vendored copy of OpenCV's file
@@ -225,6 +234,59 @@ def test_twin_matches_packed_plane_front_kernel_on_even_anchors(setup, cut):
     np.testing.assert_array_equal(got[~on_plane], gate[~on_plane])
     if cut is not None:
         assert (~on_plane).any() and (gate[~on_plane] & ~port[~on_plane]).any()
+
+
+@pytest.mark.parametrize("out_h,out_w", PACKED_SHAPES + ((53, 1300),))
+def test_listed_tiles_cover_each_listed_window_once(out_h, out_w):
+    """The kernel's grid over a list (``listed_tiles``): every window of a
+    listed block lies in exactly one tile and no window of an unlisted
+    block in any, for every list of utils/edges.py (cut short, empty,
+    entries outside the block grid, reverse order), at edge blocks and
+    where the grid is one column wider than a block."""
+    masks = edge_masks(out_h, out_w, "cpu")
+    for name in ("all alive", "last window"):
+        for lname, (blk, nblk) in block_lists(masks[name]).items():
+            tiles = listed_tiles(blk.numpy(), int(nblk[0]), out_h, out_w)
+            hits = np.zeros((out_h, out_w), np.int32)
+            for r0, c0, th, tw in tiles:
+                assert r0 % BLK_H == 0 and c0 % TILE_W == 0
+                assert 0 < th <= TILE_H and 0 < tw <= TILE_W
+                hits[r0 : r0 + th, c0 : c0 + tw] += 1
+            listed = listed_windows(blk, nblk, out_h, out_w).numpy()
+            np.testing.assert_array_equal(hits, listed.astype(np.int32), err_msg=lname)
+            if lname == "every block":
+                assert listed.all()
+                assert len(tiles) == (-(-out_h // TILE_H)) * (-(-out_w // TILE_W))
+            if lname == "nblk 0":
+                assert not tiles
+    # the last window's block alone: its tiles right of the grid do not exist
+    blk, nblk = block_lists(masks["last window"])["live blocks"]
+    assert int(nblk[0]) == 1
+    tiles = listed_tiles(blk.numpy(), 1, out_h, out_w)
+    assert len(tiles) == -(-(out_w - (out_w - 1) // BLK_W * BLK_W) // TILE_W)
+
+
+def test_twin_on_the_edge_lists_keeps_unlisted_windows(setup):
+    """The twin over utils/edges.py's lists on the 160x120 frame's gate:
+    listed windows get the dense front's value, the others keep theirs."""
+    s = setup
+    gate = s["t"]["gate"]
+    for lname, (blk, nblk) in block_lists(gate).items():
+        got = _twin(s, blk, nblk)
+        inside = listed_windows(blk, nblk, s["out_h"], s["out_w"]).numpy()
+        np.testing.assert_array_equal(got[inside], s["dense"][inside], err_msg=lname)
+        np.testing.assert_array_equal(got[~inside], gate.numpy()[~inside], err_msg=lname)
+        assert inside.all() == (lname not in ("cut short", "nblk 0")), lname
+
+
+@pytest.mark.cuda
+def test_kernel_matches_twin_and_front_on_the_edge_lists_on_card(setup, cuda_device):
+    """Four window grids (the last one column wider than a listed block) x
+    four masks x six block lists x stages [1, 8) and [4, 4)."""
+    n, survivors, bad = packed_edge_mismatches(setup["cas"], cuda_device)
+    torch.cuda.synchronize()
+    assert not bad, bad
+    assert n == 192 and survivors > 0
 
 
 @pytest.mark.cuda

@@ -100,6 +100,31 @@ def test_packed_slice_matches_jax_packed_front_engine(jax_packed_front_rects, pa
     assert got == want
 
 
+def test_max_det_raises_as_the_jax_detector_does():
+    """More raw windows than max_det raise RuntimeError with the JAX
+    package's wording, in detect_multi_scale on both sides; the defaults
+    (1 << 16, and the batch's 1 << 14 raised to 1 << 16) do not."""
+    img = face_blob_image(240, 180, n=4, seed=7)
+    jm = jread_cascade_xml(HAAR_ALT)
+    jdet = TPUDetector(dataclasses.replace(jm, stages=list(jm.stages[:10])),
+                       exact=False, engine="xla")
+    m = read_cascade_xml(HAAR_ALT)
+    det = TorchDetector(dataclasses.replace(m, stages=list(m.stages[:10])),
+                        exact=False, device="cpu", front_trees=50)
+    n_raw = len(det.raw_windows(img, 1.2)[1])
+    assert n_raw > 4
+    for d in (jdet, det):
+        with pytest.raises(RuntimeError, match=rf"{n_raw} raw detections exceed max_det=4; "
+                                               "pass a larger max_det"):
+            d.detect_multi_scale(img, 1.2, 0, max_det=4)
+    want = _sorted(jdet.detect_multi_scale(img, 1.2, 0))
+    assert _sorted(det.detect_multi_scale(img, 1.2, 0)) == want
+    assert _sorted(det.detect_multi_scale(img, 1.2, 0, max_det=n_raw)) == want
+    assert _sorted(det.detect_multi_scale_batch([img], 1.2, 0, max_det=4)[0]) == want
+    with pytest.raises(RuntimeError, match="exceed max_det="):
+        det.detect_multi_scale(img, 1.2, 0, max_det=n_raw - 1)
+
+
 def test_detector_refuses_what_is_not_ported():
     m = read_cascade_xml(HAAR_ALT)
     with pytest.raises(NotImplementedError):
