@@ -46,8 +46,9 @@ LAUNCHES: collections.Counter = collections.Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # px, sum, sq, chunk totals, h, w, chunk rows, stream
-    "cct_integral": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # px, px element bytes, sum, sq, band sums and carry, h, w, band rows,
+    # stream
+    "cct_integral": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
     # canvas, canvas_w, inv, alive_in, alive_out, out_h, out_w, win_h, win_w,
     # records, pitch, stage_start, stage_thr, s0, s1, stream
     "cct_front": [_P, _I, _P, _P, _P, _I, _I, _I, _I,
@@ -173,11 +174,11 @@ def use_ref(t, impl: str) -> bool:
 
 
 def require(t, dtype, ndim: int, name: str, device):
-    """Validate a tensor handed to a kernel: device, dtype, rank,
-    contiguity."""
+    """Validate a tensor handed to a kernel: device, dtype (one, or a
+    tuple of those the kernel takes), rank, contiguity."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim}-D, got shape {tuple(t.shape)}")

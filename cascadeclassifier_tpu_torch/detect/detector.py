@@ -148,15 +148,16 @@ def resize_tables(plan: PyramidPlan, device) -> list:
     return levels
 
 
-def build_pixel_canvas(img, plan: PyramidPlan, levels) -> torch.Tensor:
-    """u8 frame (H, W) → (canvas_h, canvas_w) int32 pixel canvas: each
-    level resized exactly, at (block_top + 1, block_left + 1); the block's
-    top row and first column stay zero.
+def build_pixel_canvas(img, plan: PyramidPlan, levels, dtype=torch.int32) -> torch.Tensor:
+    """u8 frame (H, W) → (canvas_h, canvas_w) pixel canvas of dtype (int32,
+    or uint8, which holds every value): each level resized exactly, at
+    (block_top + 1, block_left + 1); the block's top row and first column
+    stay zero.
 
     In int32: H = (256−cy)·p[y0] + cy·p[y1] (≤ 65280), then
     v = (256−cx)·H[x0] + cx·H[x1] (< 2^24), pixel = min((v + 2^15) >> 16, 255)."""
     p = img.to(torch.int32)
-    px = torch.zeros((plan.canvas_h, plan.canvas_w), dtype=torch.int32, device=img.device)
+    px = torch.zeros((plan.canvas_h, plan.canvas_w), dtype=dtype, device=img.device)
     for (top, left, h_s, w_s, y0, y1, cy, x0, x1, cx) in levels:
         rows = (256 - cy)[:, None] * p[y0] + cy[:, None] * p[y1]
         v = (256 - cx) * rows[:, x0] + cx * rows[:, x1]

@@ -142,7 +142,7 @@ class Engine(_Pipeline):
         c = self.cascade
         mark = _PhaseClock(self.device, timings)
         levels = self._plan_tensors(plan)[0]
-        px = build_pixel_canvas(img, plan, levels)
+        px = build_pixel_canvas(img, plan, levels, torch.uint8)  # read by integral alone
         mark("resize")
         sum2d, sq2d = integral(px, impl=self.impl)
         mark("integral")
@@ -180,7 +180,7 @@ class StageEngine(_Pipeline):
         c = self.cascade
         mark = _PhaseClock(self.device, timings)
         levels, grid, ordinal, _ = self._plan_tensors(plan)
-        px = build_pixel_canvas(img, plan, levels)
+        px = build_pixel_canvas(img, plan, levels)  # int32: the tilted kernel reads it too
         mark("resize")
         sum2d, sq2d = integral(px, impl=self.impl)
         mark("integral")

@@ -1,5 +1,5 @@
-"""Edge cases of the tiled front, packed front and stage kernels and of
-the tilted kernel against their twins.
+"""Edge cases of the tiled front, packed front and stage kernels, of the
+tilted kernel and of the integral kernel against their twins.
 
 Front and stage: small one-block canvases whose window grid is one less
 than, equal to and one more than two tiles each way; masks that leave
@@ -10,18 +10,28 @@ one column wider than a listed block, each with six block lists
 integer-only numpy, seeded by the frame number), taken through the
 port's own integral, tilted integral and variance gate on the given
 device. The tilted kernel takes random canvases with runs of rows around
-its chunks and widths around its strips (``tilted_edge_cases``).
+its chunks and widths around its strips (``tilted_edge_cases``). The
+integral kernel takes random canvases of heights around its bands and
+widths around a warp and its passes, as uint8 and as int32 with values up
+to 2^20, so that both sums wrap (``integral_edge_cases``).
 ``chip_smoke.py`` and the card's tests run the same cases.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
 
 from cascadeclassifier_tpu_torch.detect.dense import dense_variance_gate
 from cascadeclassifier_tpu_torch.detect.front import front
-from cascadeclassifier_tpu_torch.detect.integral import integral
+from cascadeclassifier_tpu_torch.detect.integral import (
+    APPLY_COLS,
+    APPLY_THREADS,
+    BAND_ROWS,
+    integral,
+)
 from cascadeclassifier_tpu_torch.detect.packed_front import (
     BLK_W,
     block_grid,
@@ -46,6 +56,12 @@ TILTED_RUNS = (3, 1, 2, 3, CHUNK_ROWS, CHUNK_ROWS + 1, CHUNK_ROWS + 2, 2 * CHUNK
 TILTED_WIDTHS = (1, 37, STRIP_COLS - 1, STRIP_COLS, STRIP_COLS + 1, 2 * STRIP_COLS - 1,
                  2 * STRIP_COLS + 1)
 TILTED_PADS = (0, 3, 2 * CHUNK_ROWS + 4, 500)  # the third: the tallest run's rows + 1, exact
+# one band, one row short of, at and one past a band, and three bands and a
+# part; one column, one short of, at and past a warp, the 1080p and 4K
+# canvas widths, and at and past one pass of the apply kernel
+INTEGRAL_HEIGHTS = (1, BAND_ROWS - 1, BAND_ROWS, BAND_ROWS + 1, 3 * BAND_ROWS + 5)
+INTEGRAL_WIDTHS = (1, 31, 32, 33, 1921, 3841, APPLY_THREADS * APPLY_COLS,
+                   APPLY_THREADS * APPLY_COLS + 1)
 
 
 def edge_masks(out_h: int, out_w: int, device) -> dict:
@@ -175,4 +191,26 @@ def tilted_edge_mismatches(device):
         n += 1
         if not torch.equal(tilted(pxd, is_top, pad), tilted(pxd, is_top, pad, impl="ref")):
             bad.append(f"{px.shape[1]} columns, pad {pad}")
+    return n, bad
+
+
+def integral_edge_cases():
+    """px (h, w) numpy per height x width x type: uint8 over [0, 256),
+    then int32 over [0, 2^20)."""
+    for i, (h, w) in enumerate(itertools.product(INTEGRAL_HEIGHTS, INTEGRAL_WIDTHS)):
+        rng = np.random.default_rng(200 + i)
+        yield rng.integers(0, 256, (h, w)).astype(np.uint8)
+        yield rng.integers(0, 1 << 20, (h, w)).astype(np.int32)
+
+
+def integral_edge_mismatches(device):
+    """integral over integral_edge_cases() against its twin → (cases run,
+    descriptions of the cases that differ)."""
+    n, bad = 0, []
+    for px in integral_edge_cases():
+        pxd = torch.from_numpy(px).to(device)
+        got, want = integral(pxd), integral(pxd, impl="ref")
+        n += 1
+        if not all(torch.equal(g, r) for g, r in zip(got, want)):
+            bad.append(f"{px.shape[0]}x{px.shape[1]} {px.dtype}")
     return n, bad

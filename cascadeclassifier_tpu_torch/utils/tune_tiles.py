@@ -1,7 +1,9 @@
 """Times the tiled front, packed front and stage kernels under other tile
-geometries, and the tilted kernel under other chunk and strip sizes.
+geometries, the tilted kernel under other chunk and strip sizes, and the
+integral kernel under other bands and apply-pass layouts.
 
-    python3 -m cascadeclassifier_tpu_torch.utils.tune_tiles [--quick] [-DNAME=VALUE ...]
+    python3 -m cascadeclassifier_tpu_torch.utils.tune_tiles [--quick] [--integral]
+        [-DNAME=VALUE ...]
 
 Needs a CUDA device and nvcc. On 1080p synthetic frame 0 at scaleFactor
 1.1 it builds the kernels once per geometry (tile rows and threads a
@@ -19,13 +21,26 @@ prints, per geometry, the device time of
                shelf-packed canvas, beside front there and the list build
   tilted       the tilted integral of the upper body's canvas, and of its
                first pyramid level alone
+  integral     rows a band, threads of the apply pass, adjacent columns a
+               thread and columns a block of the carry scan
+               (CCT_INTEGRAL_ROWS, CCT_INTEGRAL_THREADS, CCT_INTEGRAL_COLS,
+               CCT_INTEGRAL_STRIP of ``csrc/integral.cu``): the frontal
+               plain-stack canvas as uint8, as int32 and shelf-packed, the
+               upper body's int32 canvas, and the three launches apart on
+               the plain-stack canvas as uint8 and as int32 (device time
+               by kernel name, torch.profiler); first, as yardsticks, the
+               write of both outputs by fill_ and the integral on
+               the plain-stack canvas one column narrower (output rows
+               128-byte aligned) and 2 048 columns wide
 
-after checking each output against the default geometry's. Further
--D flags on the command line are passed to every build; --quick times the
-default geometry alone. The geometry the sources default to is the first
+after checking each output against the default geometry's (the integral's
+against its twin). Further -D flags on the command line are passed to
+every build; --quick times the default geometry alone; --integral times
+the integral alone. The geometry the sources default to is the first
 line; ``detect/records.py::TILE_H`` must name the stage kernel's tile
 rows, ``detect/tilted.py::CHUNK_ROWS`` and ``STRIP_COLS`` the tilted
-kernel's chunk and strip.
+kernel's chunk and strip, ``detect/integral.py::BAND_ROWS`` the integral
+kernel's band.
 """
 
 from __future__ import annotations
@@ -37,6 +52,7 @@ import sys
 import torch
 
 from cascadeclassifier_tpu_torch import _build
+from cascadeclassifier_tpu_torch.detect import integral as integral_mod
 from cascadeclassifier_tpu_torch.detect import records
 from cascadeclassifier_tpu_torch.detect import tilted as tilted_mod
 from cascadeclassifier_tpu_torch.detect.dense import dense_variance_gate
@@ -56,6 +72,12 @@ STAGE_GEOMETRIES = ((16, 256), (16, 512), (16, 128), (8, 128), (8, 256), (8, 512
 PACKED_THREADS = (256, 128, 512)
 TILTED_GEOMETRIES = ((64, 256), (64, 128), (64, 384), (64, 512), (32, 192), (32, 448),
                      (96, 320), (128, 256), (16, 224))  # (rows a chunk, columns a strip)
+# (rows a band, threads of the apply pass, adjacent columns a thread,
+# columns a block of the carry scan)
+INTEGRAL_GEOMETRIES = ((32, 256, 8, 32), (32, 256, 8, 16), (32, 256, 8, 8), (24, 256, 8, 32),
+                       (40, 256, 8, 32), (48, 256, 8, 32), (16, 256, 8, 16), (64, 256, 8, 32),
+                       (32, 128, 16, 32), (32, 512, 4, 32))
+INTEGRAL_LAUNCHES = ("band_sums", "band_carry", "band_apply")
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -71,10 +93,68 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def launch_ms(fn, names, reps: int = 20) -> dict:
+    """Device ms a call of fn() spent in each kernel whose name holds one
+    of names, from torch.profiler over reps calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        for name in names:
+            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name:
+                out[name] += e.device_time / 1e3 / reps
+    return out
+
+
+def tune_integral(extra, quick: bool, canvases: dict):
+    """Times every integral geometry on canvases (label → px), each output
+    held against the twin first; the launches apart on the first two."""
+    want = {label: integral(px, impl="ref") for label, px in canvases.items()}
+    first = next(iter(canvases))
+    outs = torch.empty((2, *canvases[first].shape), dtype=torch.int32,
+                       device=canvases[first].device)
+    narrow = canvases[first][:, :-1].contiguous()
+    wide = torch.zeros((narrow.shape[0], 2048), dtype=narrow.dtype, device=narrow.device)
+    print(f"{first}: both outputs written by fill_ (8 bytes a cell, the write floor) "
+          f"{cuda_ms(lambda: outs.fill_(1), 20):.4f} ms; integral on its first "
+          f"{narrow.shape[1]} columns (output rows 128-byte aligned) "
+          f"{cuda_ms(lambda: integral(narrow), 20):.4f} ms, on 2048 columns "
+          f"{cuda_ms(lambda: integral(wide), 20):.4f} ms", flush=True)
+    for rows, nt, cols, strip in INTEGRAL_GEOMETRIES[: 1 if quick else None]:
+        _build.NVCC_FLAGS = BASE_FLAGS + (f"-DCCT_INTEGRAL_ROWS={rows}",
+                                          f"-DCCT_INTEGRAL_THREADS={nt}",
+                                          f"-DCCT_INTEGRAL_COLS={cols}",
+                                          f"-DCCT_INTEGRAL_STRIP={strip}", *extra)
+        _build._lib = None
+        integral_mod.BAND_ROWS = rows
+        _build.lib()
+        same = all(torch.equal(g, r) for label, px in canvases.items()
+                   for g, r in zip(integral(px), want[label]))
+        times = ", ".join(f"{label} {cuda_ms(lambda: integral(px), 20):.4f}"
+                          for label, px in canvases.items())
+        apart = "; ".join(
+            f"{label}: " + ", ".join(f"{k} {v:.4f}" for k, v in launch_ms(
+                lambda: integral(canvases[label]), INTEGRAL_LAUNCHES).items())
+            for label in list(canvases)[:2])
+        print(f"integral {rows:3d} rows a band, {nt:4d} threads x {cols:2d} columns, carry "
+              f"strips of {strip:2d}: "
+              f"{times} ms; {apart}{'' if same else '  OUTPUT DIFFERS'}", flush=True)
+    _build.NVCC_FLAGS = BASE_FLAGS + tuple(extra)
+    _build._lib = None
+    integral_mod.BAND_ROWS = INTEGRAL_GEOMETRIES[0][0]
+
+
 def rebuild(flags, cascades, stage_tile_h: int, tilted_geometry=TILTED_GEOMETRIES[0]):
     """Point the package at a build with these extra nvcc flags."""
     _build.NVCC_FLAGS = BASE_FLAGS + tuple(flags)
     _build._lib = None
+    integral_mod.BAND_ROWS = INTEGRAL_GEOMETRIES[0][0]
     records.TILE_H = stage_tile_h
     tilted_mod.CHUNK_ROWS, tilted_mod.STRIP_COLS = tilted_geometry
     tilted_mod._device_work.cache_clear()
@@ -84,8 +164,8 @@ def rebuild(flags, cascades, stage_tile_h: int, tilted_geometry=TILTED_GEOMETRIE
 
 
 def main(extra):
-    quick = "--quick" in extra
-    extra = [a for a in extra if a != "--quick"]
+    quick, only_integral = "--quick" in extra, "--integral" in extra
+    extra = [a for a in extra if a not in ("--quick", "--integral")]
     if not torch.cuda.is_available():
         raise SystemExit("tune_tiles needs a CUDA device")
     dev = torch.device("cuda:0")
@@ -99,7 +179,8 @@ def main(extra):
                         device=dev, pack_band=False)
     eng, cas = det.engine, det.packed
     plan = det.plan_for(1920, 1080, 1.1, None, None)
-    sum_f, sq_f = integral(build_pixel_canvas(img, plan, eng._plan_tensors(plan)[0]))
+    px_f = build_pixel_canvas(img, plan, eng._plan_tensors(plan)[0], torch.uint8)
+    sum_f, sq_f = integral(px_f)
     inv_f, alive_f = eng.prep(sum_f, sq_f, plan)
 
     det_b = TorchDetector(read_cascade_xml(os.path.join(data, "haarcascade_upperbody.xml")),
@@ -120,8 +201,13 @@ def main(extra):
 
     det_p = TorchDetector(det.model, device=dev)  # the shelf-packed plan
     plan_p = det_p.plan_for(1920, 1080, 1.1, None, None)
-    sum_p, sq_p = integral(build_pixel_canvas(img, plan_p,
-                                              det_p.engine._plan_tensors(plan_p)[0]))
+    px_p = build_pixel_canvas(img, plan_p, det_p.engine._plan_tensors(plan_p)[0], torch.uint8)
+    sum_p, sq_p = integral(px_p)
+    canvases = {"plain u8": px_f, "plain int32": px_f.int(), "shelf u8": px_p,
+                "upper body int32": px_b}
+    if only_integral:
+        tune_integral(extra, quick, canvases)
+        return
     inv_p, alive_p = det_p.engine.prep(sum_p, sq_p, plan_p)
     blk, nblk = live_block_list(alive_p)
 
@@ -180,6 +266,7 @@ def main(extra):
               f"alone {cuda_ms(lambda: tilted(px_b0, top_b0, pad_b)):.4f} ms"
               f"{'' if same else '  OUTPUT DIFFERS'}", flush=True)
     rebuild(extra, (cas, cas_b), STAGE_GEOMETRIES[0][0])
+    tune_integral(extra, quick, canvases)
 
 
 BASE_FLAGS = _build.NVCC_FLAGS

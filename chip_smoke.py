@@ -10,7 +10,9 @@ TorchDetector on cuda:0, on 1920x1080 synthetic frames at scaleFactor
 
   (a) build     compile the six CUDA kernels from csrc/, one nvcc per
                 source, all started together (seconds)
-  (b) integral  kernel integral vs its plain twin on frame 0's canvas
+  (b) integral  kernel integral vs its plain twin on frame 0's canvas, as
+                uint8 (the fused engine's input) and as int32 (the same
+                values; the stage engine's input)
   (c) front     kernel front vs its twin over stages 1..n_dense-1, on the
                 ystep-2 and ystep-1 rows separately; survivors > 0
   (d) patchify  kernel patchify vs its twin on the front's survivors, at
@@ -25,8 +27,9 @@ features, engine "pallas"):
 
   (g) tilted    kernel tilted vs its twin on frame 0's canvas, at the
                 engine's pad and at pads too small to be exact
-  (h) stage     kernel stage vs its twin over stages 0-29 (alive and
-                stage 0's pass mask), and over the chunk 1-29
+  (h) stage     kernel integral vs its twin on the upper body's int32
+                canvas and as uint8; kernel stage vs its twin over stages
+                0-29 (alive and stage 0's pass mask), and over the chunk 1-29
   (i) e2e       frames 0 and 1 through the kernels equal the twin path
                 and the committed OpenCV golden at minNeighbors 3 and 0;
                 tilted and stage launched
@@ -37,7 +40,7 @@ fused engine's default), with the dense front and with the packed front
 (packed_front=True):
 
   (k) plan      both canvases; kernel integral vs its twin on the
-                shelf-packed canvas
+                shelf-packed canvas, as uint8 and as int32
   (l) packed    the live-block list vs the list built on the CPU; kernel
                 packed_front vs its twin and vs kernel front over stages
                 1..n_dense-1 on frame 0's prep mask; survivors and the
@@ -49,7 +52,8 @@ fused engine's default), with the dense front and with the packed front
   (n) timing    per front: frames/s and phase table; both front kernels
                 and the list build timed on the shelf-packed canvas
 
-The tiled kernels and the tilted kernel at their edges:
+The tiled kernels, the tilted kernel and the integral kernel at their
+edges:
 
   (o) edges     kernels front and stage vs their twins on small canvases
                 whose window grid is one less than, equal to and one more
@@ -67,15 +71,21 @@ The tiled kernels and the tilted kernel at their edges:
                 vs its twin on canvases with runs of 1, 2 and 3 rows, runs
                 around a chunk of rows, a top in the last row and row 0
                 no top, at widths around its strips and pads 0, 3, exact
-                and 500. Each kernel twice on frame 0's 1080p inputs with
-                equal outputs, and the front's stages through the stage
-                kernel (the same tile kernel with its dense pass compiled
-                in), timed
+                and 500. Kernel integral vs its twin on random canvases of
+                heights 1, a band less one, a band, a band and one, three
+                bands and five rows, by widths 1, 31, 32, 33, 1921, 3841
+                and one pass of its apply launch and one more, as uint8
+                and as int32 up to 2^20 (both sums wrap). Each kernel
+                twice on frame 0's 1080p inputs with equal outputs, and
+                the front's stages through the stage kernel (the same tile
+                kernel with its dense pass compiled in), timed
 
 and last, per kernel at its path's shapes: time against its twin, the
 least time the card could take (bytes over 3.35 TB/s or operations over
 67 TFLOP/s, the H100 SXM's published rates), and one PyTorch call that
-computes the same function where one exists; then each path traced with
+computes the same function where one exists (for the integral, which has
+none, the int32 input's time and the chained torch.cumsum composite's
+beside it); then each path traced with
 torch.profiler over 4 frames (device time, idle share, launches, host
 synchronizations: the packed front's may not exceed the dense front's).
 Exits non-zero on any mismatch, and without CUDA. The last line is
@@ -171,8 +181,11 @@ def main():
     from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml
     from cascadeclassifier_tpu_torch.utils.edges import (
         FRONT_RANGES,
+        INTEGRAL_HEIGHTS,
+        INTEGRAL_WIDTHS,
         STAGE_RANGES,
         edge_mismatches,
+        integral_edge_mismatches,
         packed_edge_mismatches,
         tilted_edge_mismatches,
     )
@@ -212,15 +225,28 @@ def main():
 
     errs, launches, timed, work = {}, {}, {}, {}
 
+    def integral_err(px_any, label: str):
+        """integral on px_any as uint8 and as int32 (the same values) vs
+        the twin, exactly → (kernel's sum, sq on the uint8 input, the max
+        abs error)."""
+        err, out = 0, None
+        for dtype in (torch.uint8, torch.int32):
+            x = px_any.to(dtype)
+            got, want = integral(x), integral(x, impl="ref")
+            torch.cuda.synchronize()
+            err = max(err, *(max_abs_err(g, r) for g, r in zip(got, want)))
+            check(all(torch.equal(g, r) for g, r in zip(got, want)),
+                  f"integral kernel != twin on the {label} canvas as {dtype}")
+            out = got if out is None else out
+        return out[0], out[1], err
+
     # (b) integral
-    px = build_pixel_canvas(img0, plan, levels)
-    s_k, q_k = integral(px)
-    s_r, q_r = integral(px, impl="ref")
-    torch.cuda.synchronize()
-    errs["integral"] = max(max_abs_err(s_k, s_r), max_abs_err(q_k, q_r))
-    check(torch.equal(s_k, s_r) and torch.equal(q_k, q_r), "integral kernel != twin")
-    print(f"(b) integral: canvas {tuple(px.shape)} sum and sq equal to the twin "
-          f"(tolerance: exact, max_abs_err {errs['integral']})", flush=True)
+    px = build_pixel_canvas(img0, plan, levels, torch.uint8)  # as Engine.detect builds it
+    check(torch.equal(px.int(), build_pixel_canvas(img0, plan, levels)),
+          "the uint8 pixel canvas differs from the int32 one")
+    s_k, q_k, errs["integral"] = integral_err(px, "plain-stack")
+    print(f"(b) integral: canvas {tuple(px.shape)}, uint8 and int32, sum and sq equal to "
+          f"the twin (tolerance: exact, max_abs_err {errs['integral']})", flush=True)
 
     # (c) front
     inv_nf, alive0 = eng.prep(s_k, q_k, plan)
@@ -290,13 +316,26 @@ def main():
             * plan.canvas_w
             + torch.arange(cas.win_w + 1, device=dev).repeat(cas.win_h + 1)).reshape(-1)
     timed["integral"] = (lambda: integral(px), lambda: integral(px, impl="ref"), None, 3)
+    px32 = px.int()
+
+    def composite():
+        x = px.int()
+        return tuple(torch.cumsum(torch.cumsum(v, 1, dtype=torch.int32), 0, dtype=torch.int32)
+                     for v in (x, x * x))
+
+    check(all(torch.equal(g, r) for g, r in zip(composite(), (s_k, q_k))),
+          "the cumsum composite != the integral")
+    integral_extra = {"int32_ms": cuda_ms(lambda: integral(px32), 20),
+                      "int32_bound_ms": bound(12 * px.numel(), 5 * px.numel())[0],
+                      "composite_ms": cuda_ms(composite, 20)}
     timed["front"] = (lambda: front(s_k, inv_nf, alive0, cas, 1, eng.n_dense),
                       lambda: front(s_k, inv_nf, alive0, cas, 1, eng.n_dense, impl="ref"),
                       None, 3)
     timed["patchify"] = (lambda: patchify(s_k, r, c, ncells, cas.win_w, cas.win_h),
                          lambda: patchify(s_k, r, c, ncells, cas.win_w, cas.win_h, impl="ref"),
                          lambda: s_k.reshape(-1)[flat], 3)
-    work["integral"] = bound(3 * 4 * hw, 5 * hw)
+    # px read once, both int32 outputs written once
+    work["integral"] = bound((px.element_size() + 8) * hw, 5 * hw)
     work["front"] = bound(4 * hw + 6 * n_win, cascade_ops(cas, 1, front_eval))
     work["patchify"] = bound(2 * 4 * flat.numel() + 2 * 4 * ncells, 0)
 
@@ -339,6 +378,8 @@ def main():
 
     # (h) stage
     sb, qb = integral(px_b)
+    _, _, err = integral_err(px_b, "upper-body")
+    errs["integral"] = max(errs["integral"], err)
     gate_b, inv_b = dense_variance_gate(sb, qb, cas_b.win_w, cas_b.win_h,
                                         plan_b.out_h, plan_b.out_w)
     alive_b = gate_b & grid_b
@@ -359,6 +400,8 @@ def main():
         int(stage(sb, t_k, inv_b, alive_b, cas_b, 0, s)[0].sum()) for s in range(1, n_st)
     ]
     n0, n_last = stage_eval[1], int(a_k.sum())
+    print(f"(h) integral: upper-body canvas {tuple(px_b.shape)}, int32 and uint8, equal to "
+          f"the twin (tolerance: exact, max_abs_err {err})", flush=True)
     print(f"(h) stage: alive and passed0 over stages 0-{n_st - 1}, and alive over the chunk "
           f"1-{n_st - 1}, equal to the twin (tolerance: exact); {int(alive_b.sum())} windows "
           f"in, {n0} after stage 0, {n_last} after stage {n_st - 1}", flush=True)
@@ -414,18 +457,16 @@ def main():
     check(det_p.pack_band, "the fused engine did not take the shelf-packed plan by default")
     plan_p = det_p.plan_for(W, H, SF, None, None)
     check(plan_p.packed, "pack_band=True gave a plain-stack plan")
-    px_p = build_pixel_canvas(img0, plan_p, det_p.engine._plan_tensors(plan_p)[0])
-    sp_k, qp_k = integral(px_p)
-    sp_r, qp_r = integral(px_p, impl="ref")
-    torch.cuda.synchronize()
-    err = max(max_abs_err(sp_k, sp_r), max_abs_err(qp_k, qp_r))
+    px_p = build_pixel_canvas(img0, plan_p, det_p.engine._plan_tensors(plan_p)[0], torch.uint8)
+    sp_k, qp_k, err = integral_err(px_p, "shelf-packed")
     errs["integral"] = max(errs["integral"], err)
-    check(torch.equal(sp_k, sp_r) and torch.equal(qp_k, qp_r),
-          "integral kernel != twin on the shelf-packed canvas")
+    shelf_ms = cuda_ms(lambda: integral(px_p), 20)
     print(f"(k) plan: shelf-packed canvas {plan_p.canvas_h} x {plan_p.canvas_w} "
           f"({px_p.numel()} cells) against the plain stack's {plan.canvas_h} x "
-          f"{plan.canvas_w} ({px.numel()} cells); integral equal to the twin there "
-          f"(tolerance: exact, max_abs_err {err})", flush=True)
+          f"{plan.canvas_w} ({px.numel()} cells); integral equal to the twin there, uint8 "
+          f"and int32 (tolerance: exact, max_abs_err {err}); kernel integral on the uint8 "
+          f"canvas {shelf_ms:.4f} ms, bound {bound(9 * px_p.numel(), 0)[0]:.4f} ms (bytes)",
+          flush=True)
 
     # (l) packed front
     inv_p, alive_p = det_p.engine.prep(sp_k, qp_k, plan_p)
@@ -535,6 +576,16 @@ def main():
     check(not bad, f"(o) tilted: kernel != twin at {bad}")
     print(f"(o) edges, tilted: {n_cases} cases (7 widths x 4 pads on a canvas of 9 runs of "
           "rows) equal to the twin (tolerance: exact)", flush=True)
+    n_cases, bad = integral_edge_mismatches(dev)
+    torch.cuda.synchronize()
+    check(not bad, f"(o) integral: kernel != twin at {bad}")
+    print(f"(o) edges, integral: {n_cases} cases ({len(INTEGRAL_HEIGHTS)} heights x "
+          f"{len(INTEGRAL_WIDTHS)} widths x uint8 and int32) equal to the twin (tolerance: "
+          "exact)", flush=True)
+    for x in (px, px32):
+        again = integral(x)
+        check(torch.equal(again[0], s_k) and torch.equal(again[1], q_k),
+              f"(o) integral kernel ({x.dtype}): two runs on the same inputs differ")
     again = front(s_k, inv_nf, alive0, cas, 1, n_dense)
     check(torch.equal(again, f_k), "(o) front kernel: two runs on the same inputs differ")
     again = packed_front(sp_k, inv_p, alive_p, blk, nblk, cas, 1, n_dense)
@@ -576,15 +627,17 @@ def main():
         plain_ms = cuda_ms(fr, plain_reps)
         library_ms = cuda_ms(flib, 20) if flib is not None else None
         bound_ms, bound_by = work[name]
+        extra = integral_extra if name == "integral" else {}
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, **extra,
         })
         print(f"kernel {name}: {ms:.4f} ms, plain twin {plain_ms:.3f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), library call "
-              f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}", flush=True)
+              f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}"
+              + "".join(f", {k} {v:.4f}" for k, v in extra.items()), flush=True)
     syncs = {}
     for name, d in (("frontal face", det), ("upper body", det_b),
                     ("frontal face shelf-packed", shelf[False]),
@@ -648,7 +701,9 @@ def profile(name: str, det, frames, sf):
         traced = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.device_time for e in events) / 1e3
-    launches = sum(1 for e in prof.events() if e.name in ("cudaLaunchKernel", "cuLaunchKernel"))
+    # cudaLaunchKernelExC too: the integral's programmatic dependent launches
+    launches = sum(1 for e in prof.events()
+                   if e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
     syncs = sum(1 for e in prof.events() if "Synchronize" in e.name)
     n = len(frames)
     print(f"profile {name}: device kernel time {device_ms / n:.2f} ms/frame, wall "

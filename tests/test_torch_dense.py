@@ -58,9 +58,9 @@ def _frame(w, h, seed):
 
 
 @functools.lru_cache(maxsize=None)
-def _canvases(w, h, sf, seed, pack_band=False):
+def _canvases(w, h, sf, seed, pack_band=False, dtype=torch.int32):
     """(img, jax plan, jax (sum, sq), port plan, port (sum, sq)), built
-    once per geometry and layout for the whole module."""
+    once per geometry, layout and pixel-canvas dtype for the whole module."""
     img = _frame(w, h, seed)
     jplan = jbuild_plan(w, h, 20, 20, sf, None, None, pack_band=pack_band)
     js, jq, _ = _build_canvas(
@@ -68,15 +68,19 @@ def _canvases(w, h, sf, seed, pack_band=False):
         resize_mats=_resize_matrices(jplan),
     )
     plan = plan_from_jax(jplan)
-    px = build_pixel_canvas(torch.from_numpy(img), plan, resize_tables(plan, "cpu"))
+    px = build_pixel_canvas(torch.from_numpy(img), plan, resize_tables(plan, "cpu"), dtype)
+    assert px.dtype == dtype
     s, q = integral(px)
     return img, jplan, (js, jq), plan, (s, q)
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint8])
 @pytest.mark.parametrize("pack_band", [False, True])
 @pytest.mark.parametrize("w,h,sf,seed", GEOMS)
-def test_canvas_matches_jax_build_canvas(w, h, sf, seed, pack_band):
-    _, _, (js, jq), plan, (s, q) = _canvases(w, h, sf, seed, pack_band)
+def test_canvas_matches_jax_build_canvas(w, h, sf, seed, pack_band, dtype):
+    """The pixel canvas as the stage engine builds it (int32) and as the
+    fused engine does (uint8), through the integral, on both layouts."""
+    _, _, (js, jq), plan, (s, q) = _canvases(w, h, sf, seed, pack_band, dtype)
     assert plan.packed == pack_band
     assert tuple(s.shape) == (plan.canvas_h, plan.canvas_w)
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
