@@ -30,8 +30,9 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("integral.cu", "front.cu", "patchify.cu", "tilted.cu", "stage.cu",
-           "packed_front.cu")
-HEADERS = ("cascade_tile.cuh",)  # included by front.cu, stage.cu and packed_front.cu
+           "packed_front.cu", "tile_node.cu", "tile_lbp.cu")
+# included by front.cu, stage.cu, packed_front.cu, tile_node.cu and tile_lbp.cu
+HEADERS = ("cascade_tile.cuh",)
 NVCC_FLAGS = (
     "-O3",
     "--fmad=false",
@@ -50,26 +51,28 @@ _SIGNATURES = {
     # stream
     "cct_integral": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
     # canvas, canvas_w, inv, alive_in, alive_out, out_h, out_w, win_h, win_w,
-    # records, pitch, stage_start, stage_thr, s0, s1, stream
+    # kind, exact, records, pitch, tree_root, leaves, stage_start, stage_thr,
+    # s0, s1, stream
     "cct_front": [_P, _I, _P, _P, _P, _I, _I, _I, _I,
-                  _P, _I, _P, _P, _I, _I, _P],
+                  _I, _I, _P, _I, _P, _P, _P, _P,
+                  _I, _I, _P],
     # canvas, canvas_w, inv, alive_in, alive_out, out_h, out_w, win_h, win_w,
-    # blk, nblk (device), nb_cap, records, pitch, stage_start, stage_thr, s0,
-    # s1, stream
+    # blk, nblk (device), nb_cap, exact, records, pitch, stage_start,
+    # stage_thr, s0, s1, stream
     "cct_packed_front": [_P, _I, _P, _P, _P, _I, _I, _I, _I,
-                         _P, _P, _I, _P, _I, _P, _P, _I,
-                         _I, _P],
+                         _P, _P, _I, _I, _P, _I, _P,
+                         _P, _I, _I, _P],
     # canvas, canvas_h, canvas_w, r, c, n, cnt, ph, pw, out, stream
     "cct_patchify": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
     # px, out, h, w, segments, n segments, items, launch offsets (host),
     # n launches, state, state row length, stream
     "cct_tilted": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _P, _I, _P],
     # sum, tilt, has_tilt, canvas_w, inv, alive_in, alive_out, passed0, out_h,
-    # out_w, win_h, win_w, records, pitch, tile_h, stage_start, stage_thr, s0,
-    # s1, stream
+    # out_w, win_h, win_w, kind, exact, records, pitch, tile_h, tree_root,
+    # leaves, stage_start, stage_thr, s0, s1, stream
     "cct_stage": [_P, _P, _I, _I, _P, _P, _P, _P, _I,
-                  _I, _I, _I, _P, _I, _I, _P, _P, _I,
-                  _I, _P],
+                  _I, _I, _I, _I, _I, _P, _I, _I, _P,
+                  _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None

@@ -12,18 +12,47 @@ import numpy as np
 
 from cascadeclassifier_tpu_torch.detect.detector import PackedCascade, PackedStage
 from cascadeclassifier_tpu_torch.detect.pyramid import PyramidPlan
-from cascadeclassifier_tpu_torch.models.model import FEATURE_HAAR
+from cascadeclassifier_tpu_torch.models.model import (
+    FEATURE_HAAR,
+    FEATURE_LBP,
+    HaarFeature,
+    LBPFeature,
+    WeakTree,
+)
+
+
+def _array(a, dtype):
+    return None if a is None else np.array(a, dtype)
+
+
+def _feature(f):
+    """A JAX package feature → the port's HaarFeature or LBPFeature (by
+    its attributes: Haar features have rects, LBP features one rect)."""
+    if hasattr(f, "rects"):
+        return HaarFeature(rects=[tuple(r) for r in f.rects], tilted=bool(f.tilted))
+    return LBPFeature(rect=tuple(int(v) for v in f.rect))
+
+
+def _tree(t):
+    return WeakTree(
+        left=_array(t.left, np.int32), right=_array(t.right, np.int32),
+        feature_idx=_array(t.feature_idx, np.int32),
+        threshold=_array(t.threshold, np.float32), subsets=_array(t.subsets, np.int32),
+        leaf_values=_array(t.leaf_values, np.float32),
+    )
 
 
 def from_jax_packed(packed) -> PackedCascade:
     """``cascadeclassifier_tpu.detect.detector.PackedCascade`` → the port's
-    ``PackedCascade`` (stump Haar, upright and tilted)."""
-    if packed.feature_type != FEATURE_HAAR:
-        raise NotImplementedError("the port runs Haar cascades only")
+    ``PackedCascade``: Haar (stumps and node trees, upright and tilted)
+    and LBP (stumps and node trees)."""
+    if packed.feature_type not in (FEATURE_HAAR, FEATURE_LBP):
+        raise NotImplementedError("the port runs Haar and LBP cascades")
     stages = []
     for st in packed.stages:
+        deep = None
         if st.deep_trees is not None:
-            raise NotImplementedError("deep-tree cascades are not ported yet")
+            deep = [(_tree(t), [_feature(f) for f in feats]) for t, feats in st.deep_trees]
         stages.append(PackedStage(
             threshold=np.float32(st.threshold),
             ntrees=int(st.ntrees),
@@ -33,8 +62,12 @@ def from_jax_packed(packed) -> PackedCascade:
             thr=np.asarray(st.thr, np.float32),
             left_leaf=np.asarray(st.left_leaf, np.float32),
             right_leaf=np.asarray(st.right_leaf, np.float32),
+            subsets=_array(st.subsets, np.int32),
+            lbp_rects=_array(st.lbp_rects, np.int32),
+            deep_trees=deep,
         ))
-    return PackedCascade(win_w=int(packed.win_w), win_h=int(packed.win_h), stages=stages)
+    return PackedCascade(win_w=int(packed.win_w), win_h=int(packed.win_h), stages=stages,
+                         feature_type=int(packed.feature_type))
 
 
 def plan_from_jax(plan) -> PyramidPlan:

@@ -1,11 +1,11 @@
-// The tiled cascade kernel behind front.cu, stage.cu and packed_front.cu:
-// stump-Haar stages [s0, s1) at the windows of one canvas tile per thread
-// block.
+// The tiled cascade kernel behind front.cu, stage.cu, packed_front.cu,
+// tile_node.cu and tile_lbp.cu: stages [s0, s1) of a cascade at the windows
+// of one canvas tile per thread block.
 //
 // One block owns kTileH x kTileW windows and does, in order:
 //   origin   where its tile lies: the Origin functor maps the block index to
 //            the tile's first window. GridOrigin tiles the whole window grid
-//            (front.cu, stage.cu); an origin that reads a tile list
+//            (front, stage); an origin that reads a tile list
 //            (packed_front.cu) may also send the whole block home before
 //            any barrier, with no memory touched
 //   skip     read the tile's alive_in bytes; when no window is alive (and
@@ -35,56 +35,95 @@
 //            whole tile is stored with coalesced byte stores
 //
 // The shared atomics make a list's order differ from run to run. No result
-// depends on it: every window's f32 stage sum is formed in tree order
-// whichever lanes hold it, and the output is a mask indexed by window.
+// depends on it: every window's stage sum is formed in tree order whichever
+// lanes hold it, and the output is a mask indexed by window.
 //
-// A tree is one 48-byte record (detect/records.py), read as three 16-byte
-// words through the read-only path (with one address for the whole warp
-// where a lane holds a window):
+// Two template parameters make the cascade's kind (detect/records.py):
+//   Trees  how one tree gives a window its leaf (f32):
+//          StumpHaar             one 48-byte record a tree (below)
+//          NodeTrees<HaarNode>   a Haar node tree: one 48-byte record a node
+//          NodeTrees<LbpNode>    an LBP stump or node tree: 80 bytes a node
+//   Acc    the stage sum's type: float (the JAX package's exact=False) or
+//          double (exact=True, OpenCV's runtime): every leaf is widened to
+//          Acc before its add, the sum starts at 0 and takes one add a tree
+//          in tree order, and passes iff sum >= (Acc)stage_thr
+//
+// A stump-Haar tree is one record, read as three 16-byte words through the
+// read-only path (with one address for the whole warp where a lane holds a
+// window):
 //   q0 = corners of rect 0 and rect 1 (4 x 16 bits each)
 //   q1 = corners of rect 2, weight 0, weight 1
-//   q2 = weight 2, thr, left, right
+//   q2 = weight 2, thr, left leaf, right leaf
 // Corners are cell offsets from the window's own cell in the shared image
 // (tilted trees' corners point into the tilted patch), in the order
 // c0 - c1 - c2 + c3, so upright and tilted trees run the same code.
-// Weighted rects come first; a slot of weight 0 ends them.
+// Weighted rects come first; a slot of weight 0 ends them. A Haar node
+// has the same words with the leaves replaced by child codes (int32); an
+// LBP node is
+//   q0, q1 = the 16 corners of its 4 x 4 grid, row by row (16 bits each)
+//   q2, q3 = the 8 subset words
+//   q4 = left child code, right child code, 0, 0
+// A child code c >= 0 is the record index of an internal node, c < 0 the
+// leaf ~c of the leaf table; tree t's root is node tree_root[t].
 // The pitch of the shared image is a template constant, so one binary
 // serves every cascade whose window fits a compiled pitch: 152, 200 or 264
 // cells, each 8 or 24 mod 32, so that in the list passes the windows of
 // neighbouring rows fall into different shared-memory banks.
 //
-// Arithmetic, per window and tree, bit for bit dense_stage_haar(exact=
-// False)'s: corner sums in uint32 read as int32 (a tilted "sum" across a
-// block top is negative), raw = f32(rect0)*w0 (+ f32(rect1)*w1 (+ ...)),
-// val = raw * inv_nf, ssum = ssum + (val < thr ? left : right) once per
-// tree in tree order from 0.0f, pass iff ssum >= stage_thr. Built with
-// --fmad=false, so no multiply-add is contracted.
+// Arithmetic, per window and tree, bit for bit the twins' (detect/dense.py):
+// corner sums in uint32 read as int32 (a tilted "sum" across a block top is
+// negative). Haar: raw = f32(rect0)*w0 (+ f32(rect1)*w1 (+ ...)), val =
+// raw * inv_nf, left iff val < thr. LBP: the 9 cell sums of the grid, the
+// code's bit (128 top left, then clockwise) set iff the cell's int32 sum
+// >= the centre's, left iff bit (code & 31) of subset word code >> 5 is
+// set; LBP reads no inv_nf. Built with --fmad=false, so no multiply-add is
+// contracted.
 //
 // Every thread reaches every barrier: the origin and the tile skip leave
 // with the whole block, partial tiles at the right and bottom edges are
 // masked, and the stage loop breaks on a count that all threads read after
-// a barrier.
+// a barrier. A node walk diverges by window; every shuffle after it names
+// the full warp.
 
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+// tile geometries (detect/records.py: TILE_H must equal both tile heights)
+#ifndef CCT_FRONT_TILE_H
+#define CCT_FRONT_TILE_H 16
+#endif
+#ifndef CCT_FRONT_THREADS
+#define CCT_FRONT_THREADS 256
+#endif
+#ifndef CCT_STAGE_TILE_H
+#define CCT_STAGE_TILE_H 16
+#endif
+#ifndef CCT_STAGE_THREADS
+#define CCT_STAGE_THREADS 256
+#endif
+
 namespace cct {
 
 constexpr int kTileW = 128;
 constexpr unsigned kFullWarp = 0xffffffffu;
 
+// the cascade kinds of the entry points (detect/records.py: KINDS)
+enum Kind { kStump = 0, kNode = 1, kLbp = 2 };
+
 struct Cascade {
-  const uint4* __restrict__ records;  // three words a tree
+  const uint4* __restrict__ records;  // a tree's or a node's words
   const int32_t* __restrict__ stage_start;
   const float* __restrict__ stage_thr;
+  const int32_t* __restrict__ tree_root;  // node trees only
+  const float* __restrict__ leaves;       // node trees only
 };
 
 struct Frame {
   const int32_t* __restrict__ sum;
   const int32_t* __restrict__ tilt;  // read only when has_tilt
-  const float* __restrict__ inv;
+  const float* __restrict__ inv;     // not read for LBP
   const uint8_t* __restrict__ alive_in;
   uint8_t* __restrict__ alive_out;
   uint8_t* __restrict__ passed0;  // stage kernel only
@@ -146,14 +185,13 @@ __device__ __forceinline__ Tree load_tree(const Cascade& cas, int t) {
   return Tree{__ldg(rec), __ldg(rec + 1), __ldg(rec + 2)};
 }
 
-// One tree at J windows: each window's leaf.
+// A Haar record's normalized value at J windows: raw * inv.
 template <int kPitch, int J>
-__device__ __forceinline__ void tree_leaves(const Tree& tree, const uint32_t* win,
-                                            const float (&inv)[J], float (&leaf)[J]) {
+__device__ __forceinline__ void haar_values(const Tree& tree, const uint32_t* win,
+                                            const float (&inv)[J], float (&val)[J]) {
   const uint4 q0 = tree.q0, q1 = tree.q1, q2 = tree.q2;
   const float w0 = __uint_as_float(q1.z), w1 = __uint_as_float(q1.w);
-  const float w2 = __uint_as_float(q2.x), thr = __uint_as_float(q2.y);
-  const float left = __uint_as_float(q2.z), right = __uint_as_float(q2.w);
+  const float w2 = __uint_as_float(q2.x);
   float raw[J];
   rect_terms<kPitch, J, true>(win, q0.x, q0.y, w0, raw);
   if (w1 != 0.0f) {
@@ -161,11 +199,107 @@ __device__ __forceinline__ void tree_leaves(const Tree& tree, const uint32_t* wi
     if (w2 != 0.0f) rect_terms<kPitch, J, false>(win, q1.x, q1.y, w2, raw);
   }
 #pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const float val = raw[j] * inv[j];
-    leaf[j] = val < thr ? left : right;
-  }
+  for (int j = 0; j < J; ++j) val[j] = raw[j] * inv[j];
 }
+
+// Tree policy: one stump-Haar record a tree, its leaves in the record.
+struct StumpHaar {
+  static constexpr bool kReadsInv = true;
+
+  template <int kPitch, int J>
+  static __device__ __forceinline__ void leaves(const Cascade& cas, int t, const uint32_t* win,
+                                                const float (&inv)[J], float (&leaf)[J]) {
+    const Tree tree = load_tree(cas, t);
+    const float thr = __uint_as_float(tree.q2.y);
+    const float left = __uint_as_float(tree.q2.z), right = __uint_as_float(tree.q2.w);
+    float val[J];
+    haar_values<kPitch, J>(tree, win, inv, val);
+#pragma unroll
+    for (int j = 0; j < J; ++j) leaf[j] = val[j] < thr ? left : right;
+  }
+};
+
+// Node of a Haar tree: the child code at J windows.
+struct HaarNode {
+  static constexpr bool kReadsInv = true;
+
+  template <int kPitch, int J>
+  static __device__ __forceinline__ void split(const Cascade& cas, int node, const uint32_t* win,
+                                               const float (&inv)[J], int (&code)[J]) {
+    const Tree nd = load_tree(cas, node);
+    const float thr = __uint_as_float(nd.q2.y);
+    const int left = static_cast<int>(nd.q2.z), right = static_cast<int>(nd.q2.w);
+    float val[J];
+    haar_values<kPitch, J>(nd, win, inv, val);
+#pragma unroll
+    for (int j = 0; j < J; ++j) code[j] = val[j] < thr ? left : right;
+  }
+};
+
+// Node of an LBP tree: the child code at J windows. 16 corner reads give
+// the 9 cell sums (uint32 differences read as int32), the code, and the
+// subset bit from the record's word code >> 5.
+struct LbpNode {
+  static constexpr bool kReadsInv = false;
+
+  template <int kPitch, int J>
+  static __device__ __forceinline__ void split(const Cascade& cas, int node, const uint32_t* win,
+                                               const float (&)[J], int (&code)[J]) {
+    const uint4* rec = cas.records + 5 * node;
+    const uint4 q0 = __ldg(rec), q1 = __ldg(rec + 1), q4 = __ldg(rec + 4);
+    const uint32_t words[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+    const int32_t* subset = reinterpret_cast<const int32_t*>(rec + 2);
+    const int left = static_cast<int>(q4.x), right = static_cast<int>(q4.y);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const uint32_t* w = win + j * kPitch;
+      uint32_t p[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) p[k] = w[(words[k >> 1] >> (16 * (k & 1))) & 0xffffu];
+      int32_t cs[9];
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const int k = 4 * r + c;
+          cs[3 * r + c] = static_cast<int32_t>(p[k] - p[k + 1] - p[k + 4] + p[k + 5]);
+        }
+      }
+      const int32_t centre = cs[4];
+      const int lbp = (cs[0] >= centre ? 128 : 0) | (cs[1] >= centre ? 64 : 0) |
+                      (cs[2] >= centre ? 32 : 0) | (cs[5] >= centre ? 16 : 0) |
+                      (cs[8] >= centre ? 8 : 0) | (cs[7] >= centre ? 4 : 0) |
+                      (cs[6] >= centre ? 2 : 0) | (cs[3] >= centre ? 1 : 0);
+      const int32_t word = __ldg(subset + (lbp >> 5));
+      code[j] = ((word >> (lbp & 31)) & 1) ? left : right;
+    }
+  }
+};
+
+// Tree policy: node trees of Node. Every window of the J takes the root
+// together; each then walks its own path to a leaf.
+template <class Node>
+struct NodeTrees {
+  static constexpr bool kReadsInv = Node::kReadsInv;
+
+  template <int kPitch, int J>
+  static __device__ __forceinline__ void leaves(const Cascade& cas, int t, const uint32_t* win,
+                                                const float (&inv)[J], float (&leaf)[J]) {
+    int code[J];
+    Node::template split<kPitch, J>(cas, __ldg(cas.tree_root + t), win, inv, code);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      int c = code[j];
+      while (c >= 0) {
+        const float inv1[1] = {inv[j]};
+        int next[1];
+        Node::template split<kPitch, 1>(cas, c, win + j * kPitch, inv1, next);
+        c = next[0];
+      }
+      leaf[j] = __ldg(cas.leaves + ~c);
+    }
+  }
+};
 
 // Appends w to the list for every lane that keeps; whole warps call it.
 __device__ __forceinline__ void push(bool keep, int w, uint16_t* list, int* count) {
@@ -186,29 +320,30 @@ __device__ __forceinline__ void push(bool keep, int w, uint16_t* list, int* coun
 // block's lanes busy and the chain of dependent trees is G times shorter:
 // these passes are bound by latency. A lane past the stage's last tree
 // evaluates that tree again and its leaf is not added.
-template <int kPitch, int kThreads, int G>
+template <int kPitch, int kThreads, int G, class Trees, class Acc>
 __device__ __forceinline__ void list_stage(const Frame& f, const Cascade& cas,
                                            const uint32_t* tile, const uint16_t* list, int n,
                                            uint16_t* next, int* next_count, int s, int r0,
                                            int c0) {
   const int t0 = cas.stage_start[s], t1 = cas.stage_start[s + 1];
-  const float stage_thr = cas.stage_thr[s];
+  const Acc stage_thr = static_cast<Acc>(cas.stage_thr[s]);
   const int sub = threadIdx.x & (G - 1);
   for (int first = 0; first < n; first += kThreads / G) {
     const int slot = first + threadIdx.x / G;
     const bool valid = slot < n;
     const int w = valid ? list[slot] : 0;  // window 0 of a tile always exists
     const int wr = w / kTileW, wc = w % kTileW;
-    const float inv[1] = {f.inv[static_cast<size_t>(r0 + wr) * f.out_w + c0 + wc]};
+    const float inv[1] = {Trees::kReadsInv ? f.inv[static_cast<size_t>(r0 + wr) * f.out_w + c0 + wc]
+                                           : 1.0f};
     const uint32_t* win = tile + wr * kPitch + wc;
-    float ssum = 0.0f;
+    Acc ssum = static_cast<Acc>(0);
     for (int tb = t0; tb < t1; tb += G) {
       float leaf[1];
-      tree_leaves<kPitch, 1>(load_tree(cas, min(tb + sub, t1 - 1)), win, inv, leaf);
+      Trees::template leaves<kPitch, 1>(cas, min(tb + sub, t1 - 1), win, inv, leaf);
 #pragma unroll
       for (int l = 0; l < G; ++l) {
         const float v = G == 1 ? leaf[0] : __shfl_sync(kFullWarp, leaf[0], l, G);
-        if (tb + l < t1) ssum = ssum + v;
+        if (tb + l < t1) ssum = ssum + static_cast<Acc>(v);
       }
     }
     push(valid && sub == 0 && ssum >= stage_thr, w, next, next_count);
@@ -238,7 +373,7 @@ constexpr size_t shared_bytes(int pitch, int win_h, int tiles) {
 // Origin: grid(f, tile_h) on the host; on the device operator()(f, tile_h,
 // r0, c0) gives the block's first window, or false when the block has no
 // tile (the same answer in every thread of the block).
-template <int kPitch, int kTileH, int kThreads, bool kStage, class Origin>
+template <int kPitch, int kTileH, int kThreads, bool kStage, class Origin, class Trees, class Acc>
 __global__ void __launch_bounds__(kThreads)
     tile_kernel(Frame f, Cascade cas, int s0, int s1, Origin origin) {
   constexpr int kWindows = kTileH * kTileW;
@@ -297,7 +432,7 @@ __global__ void __launch_bounds__(kThreads)
   if (dense0) {
 #pragma unroll
     for (int j = 0; j < J; ++j) {
-      inv[j] = ok[j] ? f.inv[g0 + static_cast<size_t>(j) * f.out_w] : 1.0f;
+      inv[j] = Trees::kReadsInv && ok[j] ? f.inv[g0 + static_cast<size_t>(j) * f.out_w] : 1.0f;
     }
   }
   cp_async_wait_all();
@@ -306,18 +441,18 @@ __global__ void __launch_bounds__(kThreads)
   int s = s0;
   if (kStage) {
     if (dense0) {
-      float ssum[J];
+      Acc ssum[J];
 #pragma unroll
-      for (int j = 0; j < J; ++j) ssum[j] = 0.0f;
+      for (int j = 0; j < J; ++j) ssum[j] = static_cast<Acc>(0);
       const uint32_t* win = tile + row0 * kPitch + col;
       const int t1 = cas.stage_start[1];
       for (int t = cas.stage_start[0]; t < t1; ++t) {
         float leaf[J];
-        tree_leaves<kPitch, J>(load_tree(cas, t), win, inv, leaf);
+        Trees::template leaves<kPitch, J>(cas, t, win, inv, leaf);
 #pragma unroll
-        for (int j = 0; j < J; ++j) ssum[j] = ssum[j] + leaf[j];
+        for (int j = 0; j < J; ++j) ssum[j] = ssum[j] + static_cast<Acc>(leaf[j]);
       }
-      const float stage_thr = cas.stage_thr[0];
+      const Acc stage_thr = static_cast<Acc>(cas.stage_thr[0]);
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const bool passed = ssum[j] >= stage_thr;
@@ -350,22 +485,28 @@ __global__ void __launch_bounds__(kThreads)
     int* filled = &count[(k + 1) % 3];
     switch (lanes) {
       case 1:
-        list_stage<kPitch, kThreads, 1>(f, cas, tile, list, n, next, filled, s, r0, c0);
+        list_stage<kPitch, kThreads, 1, Trees, Acc>(f, cas, tile, list, n, next, filled, s, r0,
+                                                    c0);
         break;
       case 2:
-        list_stage<kPitch, kThreads, 2>(f, cas, tile, list, n, next, filled, s, r0, c0);
+        list_stage<kPitch, kThreads, 2, Trees, Acc>(f, cas, tile, list, n, next, filled, s, r0,
+                                                    c0);
         break;
       case 4:
-        list_stage<kPitch, kThreads, 4>(f, cas, tile, list, n, next, filled, s, r0, c0);
+        list_stage<kPitch, kThreads, 4, Trees, Acc>(f, cas, tile, list, n, next, filled, s, r0,
+                                                    c0);
         break;
       case 8:
-        list_stage<kPitch, kThreads, 8>(f, cas, tile, list, n, next, filled, s, r0, c0);
+        list_stage<kPitch, kThreads, 8, Trees, Acc>(f, cas, tile, list, n, next, filled, s, r0,
+                                                    c0);
         break;
       case 16:
-        list_stage<kPitch, kThreads, 16>(f, cas, tile, list, n, next, filled, s, r0, c0);
+        list_stage<kPitch, kThreads, 16, Trees, Acc>(f, cas, tile, list, n, next, filled, s, r0,
+                                                     c0);
         break;
       default:
-        list_stage<kPitch, kThreads, 32>(f, cas, tile, list, n, next, filled, s, r0, c0);
+        list_stage<kPitch, kThreads, 32, Trees, Acc>(f, cas, tile, list, n, next, filled, s, r0,
+                                                     c0);
     }
     uint16_t* done = list;
     list = next;
@@ -385,10 +526,10 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Launches the kernel for one pitch; returns the first CUDA error.
-template <int kPitch, int kTileH, int kThreads, bool kStage, class Origin>
+template <int kPitch, int kTileH, int kThreads, bool kStage, class Trees, class Acc, class Origin>
 int launch(const Frame& f, const Cascade& cas, int s0, int s1, const Origin& origin,
            cudaStream_t stream) {
-  const auto kernel = tile_kernel<kPitch, kTileH, kThreads, kStage, Origin>;
+  const auto kernel = tile_kernel<kPitch, kTileH, kThreads, kStage, Origin, Trees, Acc>;
   const size_t bytes = shared_bytes<kTileH>(kPitch, f.win_h, (kStage && f.has_tilt) ? 2 : 1);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
@@ -401,7 +542,7 @@ int launch(const Frame& f, const Cascade& cas, int s0, int s1, const Origin& ori
 
 // pitch is the one the records were resolved against (records.py's
 // tile_pitch); a pitch that was not compiled is refused.
-template <int kTileH, int kThreads, bool kStage, class Origin = GridOrigin>
+template <int kTileH, int kThreads, bool kStage, class Trees, class Acc, class Origin = GridOrigin>
 int dispatch(int pitch, const Frame& f, const Cascade& cas, int s0, int s1,
              cudaStream_t stream, const Origin& origin = Origin()) {
   if (f.out_h <= 0 || f.out_w <= 0 || s0 < 0 || s1 < s0 || kTileW + f.win_w > pitch) {
@@ -409,14 +550,36 @@ int dispatch(int pitch, const Frame& f, const Cascade& cas, int s0, int s1,
   }
   switch (pitch) {
     case 152:
-      return launch<152, kTileH, kThreads, kStage>(f, cas, s0, s1, origin, stream);
+      return launch<152, kTileH, kThreads, kStage, Trees, Acc>(f, cas, s0, s1, origin, stream);
     case 200:
-      return launch<200, kTileH, kThreads, kStage>(f, cas, s0, s1, origin, stream);
+      return launch<200, kTileH, kThreads, kStage, Trees, Acc>(f, cas, s0, s1, origin, stream);
     case 264:
-      return launch<264, kTileH, kThreads, kStage>(f, cas, s0, s1, origin, stream);
+      return launch<264, kTileH, kThreads, kStage, Trees, Acc>(f, cas, s0, s1, origin, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// dispatch with the stage sum in float or, when exact, in double.
+template <int kTileH, int kThreads, bool kStage, class Trees, class Origin = GridOrigin>
+int dispatch_exact(int exact, int pitch, const Frame& f, const Cascade& cas, int s0, int s1,
+                   cudaStream_t stream, const Origin& origin = Origin()) {
+  return exact ? dispatch<kTileH, kThreads, kStage, Trees, double>(pitch, f, cas, s0, s1, stream,
+                                                                   origin)
+               : dispatch<kTileH, kThreads, kStage, Trees, float>(pitch, f, cas, s0, s1, stream,
+                                                                  origin);
+}
+
+// The node-tree instantiations live in their own translation units
+// (tile_node.cu, tile_lbp.cu), built in parallel with the rest; front.cu
+// and stage.cu hand them node and LBP cascades.
+int front_node(int exact, int pitch, const Frame& f, const Cascade& cas, int s0, int s1,
+               cudaStream_t stream);
+int stage_node(int exact, int pitch, const Frame& f, const Cascade& cas, int s0, int s1,
+               cudaStream_t stream);
+int front_lbp(int exact, int pitch, const Frame& f, const Cascade& cas, int s0, int s1,
+              cudaStream_t stream);
+int stage_lbp(int exact, int pitch, const Frame& f, const Cascade& cas, int s0, int s1,
+              cudaStream_t stream);
 
 }  // namespace cct

@@ -1,5 +1,6 @@
-// Survivor-packed cascade front: a chunk of untilted stump-Haar stages at
-// the alive windows of a list of live 16x512 blocks of the window mask.
+// Survivor-packed cascade front: a chunk of untilted stump-Haar stages, with
+// the stage sums in f32 or f64, at the alive windows of a list of live
+// 16x512 blocks of the window mask.
 //
 // Replaces both cascadeclassifier_tpu/detect/pallas_front.py::
 // make_packed_plane_front_fn (ystep-2 anchors on the parity planes) and
@@ -69,13 +70,13 @@ struct ListOrigin {
 
 // canvas (out_h + win_h, canvas_w) int32; inv (out_h, out_w) f32;
 // alive_in, alive_out (out_h, out_w) u8, alive_out a copy of alive_in;
-// blk (nb_cap, 2) int32 and nblk_dev (1,) int32 on the device; records
-// (T, 48) bytes resolved against pitch. Returns the first CUDA error of the
-// launch.
+// blk (nb_cap, 2) int32 and nblk_dev (1,) int32 on the device; exact: f64
+// stage sums; records (T, 48) bytes resolved against pitch. Returns the
+// first CUDA error of the launch.
 extern "C" int cct_packed_front(const void* canvas, int canvas_w, const void* inv,
                                 const void* alive_in, void* alive_out, int out_h, int out_w,
                                 int win_h, int win_w, const void* blk, const void* nblk_dev,
-                                int nb_cap, const void* records, int pitch,
+                                int nb_cap, int exact, const void* records, int pitch,
                                 const void* stage_start, const void* stage_thr, int s0,
                                 int s1, void* stream) {
   if (nb_cap <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -85,9 +86,9 @@ extern "C" int cct_packed_front(const void* canvas, int canvas_w, const void* in
                      canvas_w, out_h, out_w, win_h, win_w, 0};
   const cct::Cascade cas{static_cast<const uint4*>(records),
                          static_cast<const int32_t*>(stage_start),
-                         static_cast<const float*>(stage_thr)};
+                         static_cast<const float*>(stage_thr), nullptr, nullptr};
   const ListOrigin origin{static_cast<const int2*>(blk),
                           static_cast<const int32_t*>(nblk_dev), nb_cap};
-  return cct::dispatch<kBlkH, CCT_PACKED_THREADS, false>(
-      pitch, f, cas, s0, s1, static_cast<cudaStream_t>(stream), origin);
+  return cct::dispatch_exact<kBlkH, CCT_PACKED_THREADS, false, cct::StumpHaar>(
+      exact, pitch, f, cas, s0, s1, static_cast<cudaStream_t>(stream), origin);
 }

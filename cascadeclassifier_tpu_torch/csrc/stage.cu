@@ -1,4 +1,5 @@
-// Stage kernel: stump-Haar stages [s0, s1), upright and tilted features,
+// Stage kernel: stages [s0, s1) of a stump-Haar, Haar node-tree (upright
+// and tilted features) or LBP cascade, with the stage sums in f32 or f64,
 // at every alive window of the canvas, with stage 0's pass mask collected.
 //
 // Replaces cascadeclassifier_tpu/detect/pallas_stage.py::
@@ -21,7 +22,11 @@
 // window is left after its mask bytes were read. Tree parameters come as
 // packed 48-byte records (detect/records.py); a tilted tree's corners
 // point into the tilted patch, so both kinds of tree run the same code.
-// The arithmetic and its order are spelled out in cascade_tile.cuh.
+// The arithmetic and its order are spelled out in cascade_tile.cuh. The
+// JAX package runs f64, node-tree and LBP cascades in XLA (dense_stage_*);
+// here they are other tree and sum policies of the same kernel. This file
+// instantiates the stump-Haar policy; node trees and LBP are in
+// tile_node.cu and tile_lbp.cu.
 //
 // Bound: stage 0 is most of the arithmetic (every window, about ten
 // shared-memory gathers and a record's three loads a tree) and its dense
@@ -34,22 +39,18 @@
 
 #include "cascade_tile.cuh"
 
-#ifndef CCT_STAGE_TILE_H
-#define CCT_STAGE_TILE_H 16
-#endif
-#ifndef CCT_STAGE_THREADS
-#define CCT_STAGE_THREADS 256
-#endif
-
 // sum, tilt: (out_h + win_h, canvas_w) int32 canvases (tilt is read only
-// when has_tilt); inv (out_h, out_w) f32; alive_in, alive_out, passed0
-// (out_h, out_w) u8; records (T, 48) bytes resolved against pitch and a
-// tile of tile_h rows (the tilted patch's offset depends on it). Returns
-// the first CUDA error of the launch.
+// when has_tilt); inv (out_h, out_w) f32 (null for LBP); alive_in,
+// alive_out, passed0 (out_h, out_w) u8; kind (cct::Kind) and exact (f64
+// stage sums) pick the policies; records resolved against pitch and a tile
+// of tile_h rows (the tilted patch's offset depends on it), tree_root and
+// leaves for node trees (null for stumps). Returns the first CUDA error of
+// the launch.
 extern "C" int cct_stage(const void* sum, const void* tilt, int has_tilt, int canvas_w,
                          const void* inv, const void* alive_in, void* alive_out,
-                         void* passed0, int out_h, int out_w, int win_h, int win_w,
-                         const void* records, int pitch, int tile_h, const void* stage_start,
+                         void* passed0, int out_h, int out_w, int win_h, int win_w, int kind,
+                         int exact, const void* records, int pitch, int tile_h,
+                         const void* tree_root, const void* leaves, const void* stage_start,
                          const void* stage_thr, int s0, int s1, void* stream) {
   if (tile_h != CCT_STAGE_TILE_H) return static_cast<int>(cudaErrorInvalidValue);
   const cct::Frame f{static_cast<const int32_t*>(sum), static_cast<const int32_t*>(tilt),
@@ -58,7 +59,19 @@ extern "C" int cct_stage(const void* sum, const void* tilt, int has_tilt, int ca
                      canvas_w, out_h, out_w, win_h, win_w, has_tilt};
   const cct::Cascade cas{static_cast<const uint4*>(records),
                          static_cast<const int32_t*>(stage_start),
-                         static_cast<const float*>(stage_thr)};
-  return cct::dispatch<CCT_STAGE_TILE_H, CCT_STAGE_THREADS, true>(
-      pitch, f, cas, s0, s1, static_cast<cudaStream_t>(stream));
+                         static_cast<const float*>(stage_thr),
+                         static_cast<const int32_t*>(tree_root),
+                         static_cast<const float*>(leaves)};
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (kind) {
+    case cct::kStump:
+      return cct::dispatch_exact<CCT_STAGE_TILE_H, CCT_STAGE_THREADS, true, cct::StumpHaar>(
+          exact, pitch, f, cas, s0, s1, st);
+    case cct::kNode:
+      return cct::stage_node(exact, pitch, f, cas, s0, s1, st);
+    case cct::kLbp:
+      return cct::stage_lbp(exact, pitch, f, cas, s0, s1, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -12,8 +12,9 @@ the tail reads the int32 patches directly:
             a rect of weight 0 has zero area and adds +0)
     val   = raw·inv_nf;  leaf = val < thr ? left : right
   stage sum: one add per tree, in tree order (not torch.sum, whose
-  reduction order differs), then ssum ≥ threshold; the live windows are
-  compacted after every stage.
+  reduction order differs), in f32 or (exact, the JAX tail's acc_dt) in
+  f64 from leaves widened before each add, then ssum ≥ threshold; the
+  live windows are compacted after every stage.
 
 Extraction syncs with the host once per frame for the survivor count;
 there is no static capacity and so no overflow fallback.
@@ -59,9 +60,11 @@ class TailTables:
             ))
 
 
-def tail(patches, inv_nf, tables: TailTables):
+def tail(patches, inv_nf, tables: TailTables, exact: bool = False):
     """patches (n, P) int32, inv_nf (n,) f32 → indices (ascending, int64)
-    of the windows that pass every stage of ``tables``."""
+    of the windows that pass every stage of ``tables``, with f32 or
+    (exact) f64 stage sums."""
+    acc_dt = torch.float64 if exact else torch.float32
     keep = torch.arange(patches.shape[0], device=patches.device)
     for st in tables.stages:
         if keep.numel() == 0:
@@ -76,7 +79,7 @@ def tail(patches, inv_nf, tables: TailTables):
         raw = raw + rf[:, :, 2] * w[:, 2]
         val = raw * inv_nf[:, None]
         leaf = torch.where(val < st["thr"], st["left"], st["right"])
-        ssum = leaf[:, 0].clone()
+        ssum = leaf[:, 0].to(acc_dt, copy=True)
         for t in range(1, st["ntrees"]):
             ssum += leaf[:, t]
         ok = ssum >= st["threshold"]

@@ -12,16 +12,30 @@ mod 2^32, as the JAX package's int32 arithmetic wraps. That recovers the
 true rect sum (it fits int32) whatever the wrapped canvas values, and
 gives JAX's value too at a window that straddles two pyramid blocks,
 where a tilted "sum" across the block top's reset can be negative; f32
-Haar arithmetic follows the JAX order op for op.
+Haar arithmetic follows the JAX order op for op. The stage sum is f32
+(``exact=False``) or f64 (``exact=True``, the JAX package's default and
+OpenCV's runtime): each tree's f32 leaf is widened before its add, one
+add a tree in tree order from 0, and the test is sum ≥ the threshold
+widened from f32.
+
+Three stage forms, as the JAX package's: stump Haar (``dense_stage_haar``),
+categorical LBP stumps (``dense_stage_lbp``) and node trees of either
+feature (``dense_stage_deep``, for a stage with any tree of more than one
+internal node); ``stage_sum`` picks one. Each takes a corner reader, so
+the same code runs at every canvas position (the ``dense_*`` forms) and
+gathered at a list of windows (``window_stage_pass``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from cascadeclassifier_tpu_torch.detect.integral import wrap_i32
+from cascadeclassifier_tpu_torch.ops.features import lbp_code_grid
 
 
 def _narrow_i32(x):
@@ -88,53 +102,183 @@ def dense_variance_gate(sum2d, sq2d, win_w, win_h, out_h, out_w):
     return ok, torch.where(ok, inv_nf, torch.ones_like(inv_nf))
 
 
-def _stage_sum(stage, read_sum, read_tilt, inv_nf):
-    """Σ leaves over one stage's stump trees, f32 (the JAX ``exact=False``
-    mode): per tree raw = Σ f32(rect)·w in rect order (a tilted tree's
-    rects from the tilted canvas), val = raw·inv_nf, leaf by val < thr,
-    and the stage sum accumulated one add per tree, in tree order."""
-    acc = torch.zeros_like(inv_nf)
+def _haar_value(read, tilted: bool, rects, inv_nf):
+    """One Haar feature's normalized value: raw = Σ f32(rect)·w in rect
+    order (from the tilted canvas for a tilted feature), raw·inv_nf.
+    rects: (x, y, w, h, weight) of the weighted rects."""
+    if read is None:
+        raise ValueError("a tilted tree needs the tilted canvas (tilt2d)")
+    raw = None
+    for rx, ry, w, h, wt in rects:
+        term = (_rect_sum(read, tilted, int(rx), int(ry), int(w), int(h)).to(torch.float32)
+                * float(np.float32(wt)))
+        raw = term if raw is None else raw + term
+    return raw * inv_nf
+
+
+def _lbp_code(read, rect):
+    """LBP code of one feature (its top-left cell rect (x, y, w, h)) →
+    int32: the 9 cell sums as int32 values, compared signed."""
+    x, y, w, h = (int(v) for v in rect)
+    return lbp_code_grid([[_rect_sum(read, False, x + c * w, y + r * h, w, h)
+                           for c in range(3)] for r in range(3)])
+
+
+def _subset_left(code, subsets):
+    """The categorical split: bit (code & 31) of subsets[code >> 5]."""
+    words = torch.as_tensor(np.asarray(subsets, np.int32), device=code.device)
+    return ((words[(code >> 5).long()] >> (code & 31)) & 1) != 0
+
+
+def _leaf(go_left, left, right):
+    return torch.where(go_left, float(np.float32(left)), float(np.float32(right))).to(torch.float32)
+
+
+def _stump_leaves(stage, lbp: bool, read_sum, read_tilt, inv_nf):
+    """Each stump tree's f32 leaf at the windows, in tree order."""
     for i in range(stage.ntrees):
-        tilted = bool(stage.tilted[i])
-        read = read_tilt if tilted else read_sum
-        if read is None:
-            raise ValueError("a tilted tree needs the tilted canvas (tilt2d)")
-        raw = None
-        for r in range(3):
-            wt = np.float32(stage.weights[i, r])
-            if wt == 0.0:
-                continue
-            rx, ry, w, h = (int(v) for v in stage.feat_rects[i, r])
-            term = _rect_sum(read, tilted, rx, ry, w, h).to(torch.float32) * float(wt)
-            raw = term if raw is None else raw + term
-        val = raw * inv_nf
-        leaf = torch.where(
-            val < float(np.float32(stage.thr[i])),
-            float(np.float32(stage.left_leaf[i])),
-            float(np.float32(stage.right_leaf[i])),
-        )
-        acc = acc + leaf.to(torch.float32)
+        if lbp:
+            go_left = _subset_left(_lbp_code(read_sum, stage.lbp_rects[i]), stage.subsets[i])
+        else:
+            tilted = bool(stage.tilted[i])
+            rects = [(*stage.feat_rects[i, r], stage.weights[i, r]) for r in range(3)
+                     if stage.weights[i, r] != 0]
+            val = _haar_value(read_tilt if tilted else read_sum, tilted, rects, inv_nf)
+            go_left = val < float(np.float32(stage.thr[i]))
+        yield _leaf(go_left, stage.left_leaf[i], stage.right_leaf[i])
+
+
+def _node_left(tree, k: int, f, lbp: bool, read_sum, read_tilt, inv_nf):
+    """Node k of a node tree (feature f) at the windows: True where the
+    split sends a window left (LBP: its subset bit; Haar: value < thr)."""
+    if lbp:
+        return _subset_left(_lbp_code(read_sum, f.rect), tree.subsets[k])
+    val = _haar_value(read_tilt if f.tilted else read_sum, bool(f.tilted), f.rects, inv_nf)
+    return val < float(np.float32(tree.threshold[k]))
+
+
+def _deep_leaves(stage, lbp: bool, read_sum, read_tilt, inv_nf):
+    """Each node tree's f32 leaf at the windows, in tree order: every node
+    evaluated at every window and the paths taken by selects (the JAX
+    package's predictOrdered / predictCategorical semantics); a child code
+    c <= 0 is leaf −c, c > 0 node c."""
+    for tree, feats in stage.deep_trees:
+
+        def node(k):
+            go_left = _node_left(tree, k, feats[k], lbp, read_sum, read_tilt, inv_nf)
+            sides = []
+            for c in (int(tree.left[k]), int(tree.right[k])):
+                sides.append(float(np.float32(tree.leaf_values[-c])) if c <= 0 else node(c))
+            return torch.where(go_left, *sides).to(torch.float32)
+
+        yield node(0)
+
+
+def node_visits(stage, read_sum, read_tilt, inv_nf, lbp: bool = False) -> dict:
+    """How many times the windows of the readers visit a node in the
+    stage's trees, by the node feature's count of weighted rects (0 for
+    LBP): every window takes each tree's root, and a node below it only
+    where the path from the root leads there (the kernels' walk, counted
+    with the twin's arithmetic). inv_nf: f32 of the windows' shape."""
+    n = inv_nf.numel()
+    counts: dict = {}
+
+    def add(k, visits):
+        counts[k] = counts.get(k, 0) + visits
+
+    if stage.deep_trees is None:
+        for i in range(stage.ntrees):
+            add(0 if lbp else int((stage.weights[i] != 0).sum()), n)
+        return counts
+    for tree, feats in stage.deep_trees:
+        todo = [(0, torch.ones(inv_nf.shape, dtype=torch.bool, device=inv_nf.device))]
+        while todo:
+            k, at = todo.pop()
+            f = feats[k]
+            add(0 if lbp else sum(1 for r in f.rects if r[4] != 0), int(at.sum()))
+            go_left = _node_left(tree, k, f, lbp, read_sum, read_tilt, inv_nf)
+            for c, side in ((int(tree.left[k]), go_left), (int(tree.right[k]), ~go_left)):
+                if c > 0:
+                    todo.append((c, at & side))
+    return counts
+
+
+def window_node_visits(sum2d, tilt2d, stage, idx, out_w, inv_nf, lbp: bool = False) -> dict:
+    """node_visits at the windows of flat indices idx (r·out_w + c);
+    inv_nf (n,) f32 of those windows, or None for LBP."""
+    if inv_nf is None:
+        inv_nf = torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
+    read_tilt = None if tilt2d is None else _window_reader(tilt2d, idx, out_w)
+    return node_visits(stage, _window_reader(sum2d, idx, out_w), read_tilt, inv_nf, lbp)
+
+
+def stage_sum(stage, read_sum, read_tilt, inv_nf, lbp: bool = False, exact: bool = False):
+    """Σ leaves over one stage at the windows of the readers: node trees
+    when the stage has any, else stumps (Haar, or LBP when lbp); f32, or
+    f64 when exact (each leaf widened before its add). inv_nf: f32 of the
+    windows' shape (any values for LBP, which reads none)."""
+    acc_dt = torch.float64 if exact else torch.float32
+    trees = _deep_leaves if stage.deep_trees is not None else _stump_leaves
+    acc = torch.zeros(inv_nf.shape, dtype=acc_dt, device=inv_nf.device)
+    for leaf in trees(stage, lbp, read_sum, read_tilt, inv_nf):
+        acc = acc + leaf.to(acc_dt)
     return acc
 
 
-def dense_stage_haar(sum2d, stage, out_h, out_w, inv_nf, tilt2d=None):
-    """The stage sum (``_stage_sum``) at every canvas position."""
+def _passes(ssum, stage):
+    """ssum ≥ the stage threshold (f32, already lowered by 1e-5), compared
+    in the sum's type."""
+    return ssum >= float(np.float32(stage.threshold))
+
+
+def _ones(out_h, out_w, device):
+    return torch.ones((out_h, out_w), dtype=torch.float32, device=device)
+
+
+def dense_stage_haar(sum2d, stage, out_h, out_w, inv_nf, tilt2d=None, exact=False):
+    """Σ leaves over one stage's stump Haar trees (node 0 of each, for a
+    node-tree stage, as the JAX package's) at every canvas position."""
     read_tilt = None if tilt2d is None else _dense_reader(tilt2d, out_h, out_w)
-    return _stage_sum(stage, _dense_reader(sum2d, out_h, out_w), read_tilt, inv_nf)
+    return stage_sum(dataclasses.replace(stage, deep_trees=None),
+                     _dense_reader(sum2d, out_h, out_w), read_tilt, inv_nf, exact=exact)
 
 
-def stage_pass(sum2d, stage, out_h, out_w, inv_nf, tilt2d=None):
-    """Stage test: f32 stage sum ≥ f32 threshold (already lowered by 1e-5)."""
-    ssum = dense_stage_haar(sum2d, stage, out_h, out_w, inv_nf, tilt2d)
-    return ssum >= float(np.float32(stage.threshold))
+def dense_stage_lbp(sum2d, stage, out_h, out_w, exact=False):
+    """Σ leaves over one stage's categorical LBP stumps at every position."""
+    return stage_sum(dataclasses.replace(stage, deep_trees=None),
+                     _dense_reader(sum2d, out_h, out_w), None,
+                     _ones(out_h, out_w, sum2d.device), lbp=True, exact=exact)
 
 
-def window_stage_pass(sum2d, tilt2d, stage, idx, out_w, inv_nf):
+def dense_stage_deep(sum2d, tilt2d, stage, out_h, out_w, inv_nf, is_haar, exact=False):
+    """Σ leaves over one stage's node trees at every position (Haar when
+    is_haar, else LBP; inv_nf may be None for LBP)."""
+    if inv_nf is None:
+        inv_nf = _ones(out_h, out_w, sum2d.device)
+    read_tilt = None if tilt2d is None else _dense_reader(tilt2d, out_h, out_w)
+    return stage_sum(stage, _dense_reader(sum2d, out_h, out_w), read_tilt, inv_nf,
+                     lbp=not is_haar, exact=exact)
+
+
+def stage_pass(sum2d, stage, out_h, out_w, inv_nf, tilt2d=None, exact=False, lbp=False):
+    """Stage test at every canvas position: the stage sum (f32, or f64
+    when exact) ≥ the threshold; inv_nf may be None for LBP."""
+    if inv_nf is None:
+        inv_nf = _ones(out_h, out_w, sum2d.device)
+    read_tilt = None if tilt2d is None else _dense_reader(tilt2d, out_h, out_w)
+    ssum = stage_sum(stage, _dense_reader(sum2d, out_h, out_w), read_tilt, inv_nf, lbp, exact)
+    return _passes(ssum, stage)
+
+
+def window_stage_pass(sum2d, tilt2d, stage, idx, out_w, inv_nf, exact=False, lbp=False):
     """stage_pass at the windows of flat indices idx (r·out_w + c) only,
-    with the same arithmetic; inv_nf (n,) f32 of those windows."""
+    with the same arithmetic; inv_nf (n,) f32 of those windows (None for
+    LBP)."""
+    if inv_nf is None:
+        inv_nf = torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
     read_tilt = None if tilt2d is None else _window_reader(tilt2d, idx, out_w)
-    ssum = _stage_sum(stage, _window_reader(sum2d, idx, out_w), read_tilt, inv_nf)
-    return ssum >= float(np.float32(stage.threshold))
+    ssum = stage_sum(stage, _window_reader(sum2d, idx, out_w), read_tilt, inv_nf, lbp, exact)
+    return _passes(ssum, stage)
 
 
 def canvas_tilted(px, is_top, pad: int):

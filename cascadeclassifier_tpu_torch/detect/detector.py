@@ -4,12 +4,15 @@ Counterpart of ``cascadeclassifier_tpu/detect/detector.py``: the packed
 cascade, the exact INTER_LINEAR_EXACT canvas resize, the mapping of
 window positions to image rects, and ``TorchDetector``, whose
 ``detect_multi_scale`` matches cv::CascadeClassifier::detectMultiScale
-for stump Haar cascades, upright or tilted, with f32 stage sums.
+for Haar cascades (stumps or node trees, upright or tilted features) and
+LBP cascades, with f64 stage sums (``exact=True``, the default, as the
+runtime and the JAX package) or f32 ones.
 
 Runtime semantics replicated:
   - variance gate: reject window unless nf² > 0 and area/nf < 0.1
   - Haar value = f32(Σ wᵢ·rectsumᵢ) · f32(1/√nf²); split: value < threshold
   - stage pass: Σ leaves ≥ f32(stageThreshold) − 1e-5
+  - LBP: no gate; categorical split via subset bitmask (bit set → left)
 """
 
 from __future__ import annotations
@@ -21,8 +24,8 @@ import torch
 
 from cascadeclassifier_tpu_torch.detect.grouping import clip_rects, group_rectangles
 from cascadeclassifier_tpu_torch.detect.pyramid import PyramidPlan, build_plan
-from cascadeclassifier_tpu_torch.detect.records import tile_pitch, tree_records
-from cascadeclassifier_tpu_torch.models.model import FEATURE_HAAR, CascadeModel
+from cascadeclassifier_tpu_torch.detect.records import KINDS, node_tables, tile_pitch, tree_records
+from cascadeclassifier_tpu_torch.models.model import FEATURE_HAAR, FEATURE_LBP, CascadeModel
 from cascadeclassifier_tpu_torch.ops.resize import _axis_tab
 
 THRESHOLD_EPS = np.float32(1e-5)
@@ -32,33 +35,61 @@ THRESHOLD_EPS = np.float32(1e-5)
 class PackedStage:
     threshold: np.float32  # effective (xml − 1e-5)
     ntrees: int
-    feat_rects: np.ndarray  # (T, 3, 4) int32 rect geometry (x, y, w, h)
-    weights: np.ndarray  # (T, 3) float32, 0 for absent rects
-    tilted: np.ndarray  # (T,) bool — the tree's feature is a 45° one
-    thr: np.ndarray  # (T,) float32
+    # the stump arrays; when deep_trees is set they hold node 0 only and
+    # deep_trees drives evaluation
+    feat_rects: np.ndarray  # (T, 3, 4) int32 rect geometry (x, y, w, h) (Haar)
+    weights: np.ndarray  # (T, 3) float32, 0 for absent rects (Haar)
+    tilted: np.ndarray  # (T,) bool — the tree's feature is a 45° one (Haar)
+    thr: np.ndarray  # (T,) float32 (Haar)
     left_leaf: np.ndarray  # (T,) float32
     right_leaf: np.ndarray  # (T,) float32
+    subsets: np.ndarray | None = None  # (T, 8) int32 categorical split (LBP)
+    lbp_rects: np.ndarray | None = None  # (T, 4) int32 cell rect (LBP)
+    # any tree with >1 internal node: [(WeakTree, [feature per node])]
+    deep_trees: list | None = None
 
 
 @dataclasses.dataclass
 class PackedCascade:
-    """Stump Haar cascade (upright and tilted features) as flat arrays."""
+    """Haar (stumps or node trees, upright and tilted features) or LBP
+    cascade as flat arrays."""
 
     win_w: int
     win_h: int
     stages: list
+    feature_type: int = FEATURE_HAAR
     _tables: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
+    def is_lbp(self) -> bool:
+        return self.feature_type == FEATURE_LBP
+
+    @property
+    def kind(self) -> str:
+        """The kernels' record form (``detect/records.py``): "lbp", "node"
+        (a Haar cascade with any tree of more than one internal node) or
+        "stump"."""
+        if self.is_lbp:
+            return "lbp"
+        return "node" if any(st.deep_trees is not None for st in self.stages) else "stump"
+
+    @property
     def has_tilted(self) -> bool:
-        return any(st.tilted.any() for st in self.stages)
+        if self.is_lbp:
+            return False
+        return any(
+            st.tilted.any() if st.deep_trees is None
+            else any(f.tilted for _, feats in st.deep_trees for f in feats)
+            for st in self.stages
+        )
 
     @classmethod
     def from_model(cls, m: CascadeModel) -> "PackedCascade":
-        if m.feature_type != FEATURE_HAAR:
-            raise NotImplementedError("the port runs Haar cascades only")
-        if m.max_tree_nodes() > 1:
-            raise NotImplementedError("deep-tree cascades are not ported yet")
+        if m.feature_type not in (FEATURE_HAAR, FEATURE_LBP):
+            raise NotImplementedError(
+                "HOG cascades are served by the JAX package's HOGDetector; "
+                "the port runs Haar and LBP cascades"
+            )
         stages = []
         for s in m.stages:
             t = len(s.trees)
@@ -66,43 +97,67 @@ class PackedCascade:
             w = np.zeros((t, 3), np.float32)
             tl = np.zeros(t, bool)
             thr = np.zeros(t, np.float32)
+            subs = np.zeros((t, 8), np.int32)
             ll = np.zeros(t, np.float32)
             rl = np.zeros(t, np.float32)
+            lbp = np.zeros((t, 4), np.int32)
             for i, tree in enumerate(s.trees):
                 f = m.features[int(tree.feature_idx[0])]
                 if tree.left[0] <= 0:
                     ll[i] = tree.leaf_values[-int(tree.left[0])]
                 if tree.right[0] <= 0:
                     rl[i] = tree.leaf_values[-int(tree.right[0])]
-                for ri, (x, y, rw, rh, wt) in enumerate(f.rects):
-                    fr[i, ri] = (x, y, rw, rh)
-                    w[i, ri] = wt
-                tl[i] = f.tilted
-                thr[i] = tree.threshold[0]
+                if m.feature_type == FEATURE_HAAR:
+                    for ri, (x, y, rw, rh, wt) in enumerate(f.rects):
+                        fr[i, ri] = (x, y, rw, rh)
+                        w[i, ri] = wt
+                    tl[i] = f.tilted
+                    thr[i] = tree.threshold[0]
+                else:
+                    lbp[i] = f.rect
+                    subs[i] = tree.subsets[0]
+            deep = None
+            if any(tr.num_nodes > 1 for tr in s.trees):
+                deep = [(tr, [m.features[int(v)] for v in tr.feature_idx]) for tr in s.trees]
             stages.append(PackedStage(
                 threshold=np.float32(s.threshold) - THRESHOLD_EPS,
                 ntrees=t, feat_rects=fr, weights=w, tilted=tl, thr=thr,
-                left_leaf=ll, right_leaf=rl,
+                left_leaf=ll, right_leaf=rl, subsets=subs, lbp_rects=lbp, deep_trees=deep,
             ))
-        return cls(win_w=m.width, win_h=m.height, stages=stages)
+        return cls(win_w=m.width, win_h=m.height, stages=stages, feature_type=m.feature_type)
 
     def __post_init__(self):
-        """Every rect's corners lie inside the window, so no kernel read
-        leaves the canvas: upright (x, y)..(x+w, y+h); tilted (x, y),
-        (x−h, y+h), (x+w, y+w), (x+w−h, y+w+h) (dense.py's assert)."""
-        for si, st in enumerate(self.stages):
-            x, y, w, h = np.moveaxis(st.feat_rects, -1, 0)
+        """Every corner a kernel reads lies inside the window, so no read
+        leaves the canvas: Haar upright (x, y)..(x+w, y+h); tilted (x, y),
+        (x−h, y+h), (x+w, y+w), (x+w−h, y+w+h) (dense.py's assert); LBP
+        (x + i·w, y + j·h) for i, j in 0..3; for node trees, every node's."""
+        def inside(rects, tilted):
+            x, y, w, h = np.moveaxis(np.asarray(rects, np.int64).reshape(-1, 4), -1, 0)
             upright = (x >= 0) & (y >= 0) & (x + w <= self.win_w) & (y + h <= self.win_h)
-            tilted = (x - h >= 0) & (y >= 0) & (x + w <= self.win_w) & (y + w + h <= self.win_h)
-            inside = np.where(st.tilted[:, None], tilted, upright)
-            if not inside.all():
+            tilt = (x - h >= 0) & (y >= 0) & (x + w <= self.win_w) & (y + w + h <= self.win_h)
+            return np.where(tilted, tilt, upright).all()
+
+        for si, st in enumerate(self.stages):
+            if self.is_lbp:
+                cells = np.asarray(st.lbp_rects, np.int64) * [1, 1, 3, 3]
+                ok = inside(cells, False)
+                for _, feats in st.deep_trees or ():
+                    ok = ok and all(inside(np.multiply(f.rect, [1, 1, 3, 3]), False)
+                                    for f in feats)
+            else:
+                ok = inside(st.feat_rects, np.repeat(st.tilted, 3))
+                for _, feats in st.deep_trees or ():
+                    ok = ok and all(inside([r[:4] for r in f.rects], bool(f.tilted))
+                                    for f in feats)
+            if not ok:
                 raise ValueError(f"stage {si}: a rect leaves the {self.win_w}x{self.win_h} window")
 
     def device_table(self, device) -> dict:
         """Every tree's parameters on the device, built once per device:
-        the packed 48-byte tree records (``detect/records.py``) that the
-        front, packed front and stage kernels read, with the shared-memory
-        pitch they are resolved against."""
+        the records (``detect/records.py``) that the front, packed front and
+        stage kernels read, with the shared-memory pitch they are resolved
+        against, the kind, and for node records each tree's root and the
+        leaf table (None for stumps)."""
         key = str(torch.device(device))
         if key not in self._tables:
             st = self.stages
@@ -111,11 +166,20 @@ class PackedCascade:
             def dev(a, dt):
                 return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
 
-            rec = tree_records(st, self.win_w, self.win_h)
+            roots = leaves = None
+            if self.kind == "stump":
+                rec = tree_records(st, self.win_w, self.win_h)
+            else:
+                rec, roots, leaves = node_tables(st, self.win_w, self.win_h, self.is_lbp,
+                                                 self.has_tilted)
+                roots, leaves = dev(roots, torch.int32), dev(leaves, torch.float32)
             self._tables[key] = dict(
                 records=dev(rec.view(np.uint8).reshape(len(rec), -1), torch.uint8),
                 pitch=tile_pitch(self.win_w),
+                kind=KINDS[self.kind],
                 has_tilted=self.has_tilted,
+                tree_root=roots,
+                leaves=leaves,
                 stage_start=dev(start, torch.int32),
                 stage_thr=dev([s.threshold for s in st], torch.float32),
             )
@@ -194,33 +258,37 @@ class TorchDetector:
     """detectMultiScale-compatible detector running each frame through
     ``detect/engine.py`` on one device.
 
+    exact: f64 stage sums, bit for bit OpenCV's runtime (True, the default,
+    as the JAX package's TPUDetector); False takes f32 sums (the same
+    detections except at windows within ~1e-6 of a stage threshold).
+
     device: where the work runs ("cuda", "cuda:0", "cpu"); "cuda" with no
     card present raises — nothing falls back to the CPU. impl="ref" runs
     the plain PyTorch twin of every kernel (on any device).
 
     engine, as the JAX package names them: "fused" (``Engine``, upright
-    stump Haar), "pallas" (``StageEngine``, any stump Haar cascade), or
-    "auto" ("fused" for an upright cascade, "pallas" for a tilted one).
-    front_trees applies to "fused" only.
+    cascades: stump Haar with a front and a tail, node trees and LBP with
+    every stage in the front), "pallas" (``StageEngine``, every cascade
+    the port takes: stump or node-tree Haar, upright or tilted, and LBP),
+    or "auto" ("fused" for an upright stump Haar cascade, "pallas" for a
+    tilted, node-tree or LBP one, whose every stage the stage kernel
+    runs). front_trees applies to "fused" only. HOG cascades raise.
 
     pack_band: the shelf-packed pyramid plan (``build_plan(pack_band=
     True)``); None takes it for "fused" and the plain stack for "pallas",
     whose tilted canvas resets per block top and cannot hold levels side
-    by side. packed_front ("fused" only): run the front over the list of
-    live 16x512 blocks (``detect/packed_front.py``) instead of the whole
-    canvas. The JAX package's CCTPU_PACK_BAND and CCTPU_PACKED_FRONT."""
+    by side. packed_front ("fused", stump Haar only): run the front over
+    the list of live 16x512 blocks (``detect/packed_front.py``) instead of
+    the whole canvas. The JAX package's CCTPU_PACK_BAND and
+    CCTPU_PACKED_FRONT."""
 
-    def __init__(self, model: CascadeModel, exact: bool = False, device="cuda",
+    def __init__(self, model: CascadeModel, exact: bool = True, device="cuda",
                  engine: str = "auto", front_trees: int = 250, impl: str = "auto",
                  pack_band: bool | None = None, packed_front: bool = False):
         from cascadeclassifier_tpu_torch.detect.engine import Engine, StageEngine
 
         if engine not in ("auto", "fused", "pallas"):
             raise ValueError(f"engine must be 'auto', 'fused' or 'pallas', got {engine!r}")
-        if exact:
-            raise NotImplementedError(
-                "exact (f64 stage sum) mode is not ported yet; use exact=False"
-            )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' requested but no CUDA device is available")
@@ -228,10 +296,11 @@ class TorchDetector:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.model = model
-        self.exact = exact
+        self.exact = bool(exact)
         self.packed = PackedCascade.from_model(model)
         if engine == "auto":
-            engine = "pallas" if self.packed.has_tilted else "fused"
+            upright_stumps = self.packed.kind == "stump" and not self.packed.has_tilted
+            engine = "fused" if upright_stumps else "pallas"
         self.engine_name = engine
         self.pack_band = engine == "fused" if pack_band is None else bool(pack_band)
         if engine == "pallas" and self.pack_band:
@@ -240,9 +309,9 @@ class TorchDetector:
             raise ValueError("packed_front applies to engine 'fused' only")
         if engine == "fused":
             self.engine = Engine(self.packed, self.device, front_trees=front_trees, impl=impl,
-                                 packed_front=packed_front)
+                                 packed_front=packed_front, exact=self.exact)
         else:
-            self.engine = StageEngine(self.packed, self.device, impl=impl)
+            self.engine = StageEngine(self.packed, self.device, impl=impl, exact=self.exact)
 
     def plan_for(self, w, h, scale_factor, min_size, max_size):
         return build_plan(

@@ -23,18 +23,23 @@ front phase becomes
 
 n_dense is the first stage at which the trees summed from stage 1 reach
 ``front_trees`` (250 by default, as in the JAX package). It takes
-upright stump Haar cascades, on the plain or the shelf-packed plan; on
-the latter the walk restarts at the gaps between levels that share a
-canvas row.
+upright cascades, on the plain or the shelf-packed plan; on the latter
+the walk restarts at the gaps between levels that share a canvas row.
+A node-tree or LBP cascade runs every stage in the front (n_dense = the
+stage count, no patchify and no tail), as the JAX fused engine runs
+every stage of a deep cascade densely; LBP has no variance gate and no
+inv_nf. ``exact=True`` takes stage 0, the front and the tail in f64.
 
 ``StageEngine`` (``engine="pallas"``) is the counterpart of
 ``TPUDetector``'s ``pallas`` branch (``_submit_one`` with
-``_make_collect_fn``) and takes any stump Haar cascade, tilted or not:
+``_make_collect_fn``), and of its ``xla`` branch for what the Pallas
+kernel does not take (f64 sums, node trees, LBP); it takes every cascade
+the port does, tilted or not:
 
   resize   as above                                      (torch)
   integral as above                                      (kernel 1)
   tilted   the tilted canvas, for a tilted cascade       (kernel tilted)
-  gate     the variance gate                             (torch)
+  gate     the variance gate (Haar; LBP has none)        (torch)
   stage    every stage at every alive window, with
            stage 0's pass mask                           (kernel stage)
   walk     closed-form OpenCV walk from gate ∧ ¬passed0  (torch)
@@ -81,11 +86,12 @@ class _Pipeline:
     twin, on any device; ``"auto"`` dispatches on the tensor's device)
     and the per-plan device tables."""
 
-    def __init__(self, cascade, device, impl: str = "auto"):
+    def __init__(self, cascade, device, impl: str = "auto", exact: bool = False):
         _build.check_impl(impl)
         self.cascade = cascade
         self.device = torch.device(device)
         self.impl = impl
+        self.exact = exact
         self.last_counts = {}
         self._plans = {}
 
@@ -111,23 +117,31 @@ class Engine(_Pipeline):
     """Runs the static-front pipeline above (upright cascades only)."""
 
     def __init__(self, cascade, device, front_trees: int = 250, impl: str = "auto",
-                 packed_front: bool = False):
+                 packed_front: bool = False, exact: bool = False):
         if cascade.has_tilted:
             raise ValueError("the fused engine takes upright cascades; use StageEngine")
-        super().__init__(cascade, device, impl)
+        if packed_front and cascade.kind != "stump":
+            raise ValueError("packed_front takes stump Haar cascades")
+        super().__init__(cascade, device, impl, exact)
         self.packed_front = packed_front
-        self.n_dense = front_cutover(cascade, front_trees)
+        self.n_dense = (front_cutover(cascade, front_trees) if cascade.kind == "stump"
+                        else len(cascade.stages))
         self.tail_tables = TailTables(
             cascade, range(self.n_dense, len(cascade.stages)), self.device
         )
 
     def prep(self, sum2d, sq2d, plan):
-        """Gate + stage 0 + the serial-walk visited mask → (inv_nf, alive)."""
+        """Gate + stage 0 + the serial-walk visited mask → (inv_nf, alive);
+        inv_nf is None for LBP, which has no gate."""
         _, grid, ordinal, reset = self._plan_tensors(plan)
         c = self.cascade
         out_h, out_w = plan.out_h, plan.out_w
+        if c.is_lbp:
+            passed0 = stage_pass(sum2d, c.stages[0], out_h, out_w, None, exact=self.exact,
+                                 lbp=True)
+            return None, grid & passed0 & parity_visited(~passed0, grid, ordinal, reset)
         gate, inv_nf = dense_variance_gate(sum2d, sq2d, c.win_w, c.win_h, out_h, out_w)
-        passed0 = stage_pass(sum2d, c.stages[0], out_h, out_w, inv_nf)
+        passed0 = stage_pass(sum2d, c.stages[0], out_h, out_w, inv_nf, exact=self.exact)
         visited = parity_visited(gate & ~passed0, grid, ordinal, reset)
         return inv_nf, gate & grid & passed0 & visited
 
@@ -152,10 +166,11 @@ class Engine(_Pipeline):
             blk, nblk = live_block_list(alive)
             mark("blocks")
             alive = packed_front(sum2d, inv_nf, alive, blk, nblk, c, 1, self.n_dense,
-                                 impl=self.impl)
+                                 impl=self.impl, exact=self.exact)
             mark("packed_front")
         else:
-            alive = front(sum2d, inv_nf, alive, c, 1, self.n_dense, impl=self.impl)
+            alive = front(sum2d, inv_nf, alive, c, 1, self.n_dense, impl=self.impl,
+                          exact=self.exact)
             mark("front")
         idx = extract_survivors(alive)
         n = int(idx.numel())
@@ -166,13 +181,13 @@ class Engine(_Pipeline):
             col = (idx % plan.out_w).to(torch.int32)
             ps = patchify(sum2d, r, col, n, c.win_w, c.win_h, impl=self.impl)
             mark("patchify")
-            idx = idx[tail(ps, inv_nf.reshape(-1)[idx], self.tail_tables)]
+            idx = idx[tail(ps, inv_nf.reshape(-1)[idx], self.tail_tables, self.exact)]
             mark("tail")
         return idx.cpu().numpy()
 
 
 class StageEngine(_Pipeline):
-    """Runs the stage pipeline above (any stump Haar cascade)."""
+    """Runs the stage pipeline above (any cascade the port takes)."""
 
     def detect(self, img, plan, timings: dict | None = None):
         """As Engine.detect; phases: resize, integral, tilted, gate, stage,
@@ -191,14 +206,18 @@ class StageEngine(_Pipeline):
             pad = int(plan.scaled_h.max()) + 1
             tilt2d = tilted(px, plan.is_top, pad, impl=self.impl)
             mark("tilted")
-        gate, inv_nf = dense_variance_gate(sum2d, sq2d, c.win_w, c.win_h, plan.out_h, plan.out_w)
-        mark("gate")
+        if c.is_lbp:  # no gate, and no inv_nf to read
+            gate, inv_nf = None, None
+        else:
+            gate, inv_nf = dense_variance_gate(sum2d, sq2d, c.win_w, c.win_h, plan.out_h,
+                                               plan.out_w)
+            mark("gate")
         # ANDing the static visit grid in only skips windows that the walk
         # masks out below; stage 0's pass mask is still taken everywhere
-        alive, passed0 = stage(sum2d, tilt2d, inv_nf, gate & grid, c, 0, len(c.stages),
-                               impl=self.impl)
+        alive, passed0 = stage(sum2d, tilt2d, inv_nf, grid if gate is None else gate & grid, c,
+                               0, len(c.stages), impl=self.impl, exact=self.exact)
         mark("stage")
-        visited = parity_visited(gate & ~passed0, grid, ordinal)
+        visited = parity_visited(~passed0 if gate is None else gate & ~passed0, grid, ordinal)
         mark("walk")
         idx = extract_survivors(alive & visited)
         self.last_counts = {"raw_windows": int(idx.numel())}

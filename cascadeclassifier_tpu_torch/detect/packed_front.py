@@ -88,24 +88,28 @@ def listed_tiles(blk, nblk: int, out_h: int, out_w: int) -> list:
     return tiles
 
 
-def packed_front_ref(sum2d, inv_nf, alive, blk, nblk, cascade, s0, s1):
+def packed_front_ref(sum2d, inv_nf, alive, blk, nblk, cascade, s0, s1, exact=False):
     """Plain twin: inside the listed blocks alive ∧ every stage in
     [s0, s1) passed (dense ``stage_pass`` per stage); alive elsewhere."""
     out_h, out_w = alive.shape
     inside = listed_windows(blk, nblk, out_h, out_w)
-    return torch.where(inside, front_ref(sum2d, inv_nf, alive & inside, cascade, s0, s1),
+    return torch.where(inside, front_ref(sum2d, inv_nf, alive & inside, cascade, s0, s1, exact),
                        alive)
 
 
 def packed_front(sum2d, inv_nf, alive, blk, nblk, cascade, s0: int, s1: int,
-                 impl: str = "auto"):
+                 impl: str = "auto", exact: bool = False):
     """sum2d (canvas_h, canvas_w) int32; inv_nf (out_h, out_w) f32; alive
     (out_h, out_w) bool; blk (nb_cap, 2) int32 and nblk (1,) int32 from
-    ``live_block_list`` → alive with stages [s0, s1) applied inside the
-    blocks blk[i], i < nblk (bool, a new tensor)."""
+    ``live_block_list`` → alive with stages [s0, s1) of a stump Haar
+    cascade applied inside the blocks blk[i], i < nblk (bool, a new
+    tensor), with f32 or (exact) f64 stage sums."""
     check_stages(cascade, s0, s1)
+    if cascade.kind != "stump":
+        raise ValueError("packed_front takes stump Haar cascades; node trees and LBP go "
+                         "to detect/front.py")
     if _build.use_ref(sum2d, impl):
-        return packed_front_ref(sum2d, inv_nf, alive, blk, nblk, cascade, s0, s1)
+        return packed_front_ref(sum2d, inv_nf, alive, blk, nblk, cascade, s0, s1, exact)
     check_inputs(sum2d, inv_nf, alive, cascade)
     dev = sum2d.device
     _build.require(blk, torch.int32, 2, "blk", dev)
@@ -118,7 +122,7 @@ def packed_front(sum2d, inv_nf, alive, blk, nblk, cascade, s0: int, s1: int,
     code = _build.lib().cct_packed_front(
         sum2d.data_ptr(), sum2d.shape[1], inv_nf.data_ptr(),
         alive.data_ptr(), out.data_ptr(), out_h, out_w, cascade.win_h, cascade.win_w,
-        blk.data_ptr(), nblk.data_ptr(), blk.shape[0],
+        blk.data_ptr(), nblk.data_ptr(), blk.shape[0], int(exact),
         tab["records"].data_ptr(), tab["pitch"], tab["stage_start"].data_ptr(),
         tab["stage_thr"].data_ptr(), s0, s1, _build.stream_of(sum2d),
     )

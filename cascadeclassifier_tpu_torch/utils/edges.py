@@ -14,12 +14,22 @@ its chunks and widths around its strips (``tilted_edge_cases``). The
 integral kernel takes random canvases of heights around its bands and
 widths around a warp and its passes, as uint8 and as int32 with values up
 to 2^20, so that both sums wrap (``integral_edge_cases``).
+
+The tile kernel's other policies take the same shapes and masks with f32
+and f64 stage sums (``policy_edge_cases``): the frontal face and the upper
+body in f64, Haar node trees (alt2, and the tilted 3-node eye_tree cut to
+its first stages), LBP stumps (the LBP frontal face), a hand-built LBP
+cascade of 2-node trees (``lbp_two_node_model``) and a hand-built stump
+cascade whose stage threshold lies between the f32 and the f64 sums of
+its leaves (``knife_edge_model``), where the two modes must differ.
 ``chip_smoke.py`` and the card's tests run the same cases.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
+import os
 
 import numpy as np
 import torch
@@ -41,7 +51,10 @@ from cascadeclassifier_tpu_torch.detect.packed_front import (
 from cascadeclassifier_tpu_torch.detect.records import TILE_H, TILE_W
 from cascadeclassifier_tpu_torch.detect.stage import stage
 from cascadeclassifier_tpu_torch.detect.tilted import CHUNK_ROWS, STRIP_COLS, tilted
+from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml
 from cascadeclassifier_tpu_torch.utils.synth import synth_frame
+
+DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 
 SHAPES = tuple((2 * TILE_H + d, 2 * TILE_W + d) for d in (-1, 0, 1))
 FRONT_RANGES = ((1, 8), (3, 5), (4, 4))
@@ -95,30 +108,142 @@ def edge_inputs(k: int, out_h: int, out_w: int, cascade, device, with_tilted: bo
     return sum2d, tilt2d, inv_nf
 
 
-def edge_mismatches(cascade, ranges, device, use_stage: bool):
+def edge_mismatches(cascade, ranges, device, use_stage: bool, exact: bool = False):
     """Runs every shape x mask x stage range through the kernel (on a
     CUDA device) and through its twin → (cases run, survivors summed
     over the cases, descriptions of the cases that differ). use_stage:
     the stage kernel (alive and passed0), with the tilted canvas when the
     cascade has tilted trees and sum2d in its place otherwise; else the
-    front kernel."""
+    front kernel. exact: f64 stage sums; an LBP cascade gets no inv_nf."""
     n, survivors, bad = 0, 0, []
     for k, (out_h, out_w) in enumerate(SHAPES):
         sum2d, tilt2d, inv_nf = edge_inputs(k, out_h, out_w, cascade, device,
                                             use_stage and cascade.has_tilted)
+        if cascade.is_lbp:
+            inv_nf = None
         for name, alive in edge_masks(out_h, out_w, device).items():
             for s0, s1 in ranges:
                 if use_stage:
-                    got = stage(sum2d, tilt2d, inv_nf, alive, cascade, s0, s1)
-                    want = stage(sum2d, tilt2d, inv_nf, alive, cascade, s0, s1, impl="ref")
+                    args = (sum2d, tilt2d, inv_nf, alive, cascade, s0, s1)
+                    got = stage(*args, exact=exact)
+                    want = stage(*args, impl="ref", exact=exact)
                 else:
-                    got = (front(sum2d, inv_nf, alive, cascade, s0, s1),)
-                    want = (front(sum2d, inv_nf, alive, cascade, s0, s1, impl="ref"),)
+                    args = (sum2d, inv_nf, alive, cascade, s0, s1)
+                    got = (front(*args, exact=exact),)
+                    want = (front(*args, impl="ref", exact=exact),)
                 n += 1
                 survivors += int(got[0].sum())
                 if not all(torch.equal(g, w) for g, w in zip(got, want)):
                     bad.append(f"{out_h}x{out_w} windows, {name}, stages [{s0}, {s1})")
     return n, survivors, bad
+
+
+def knife_threshold() -> np.float32:
+    """An XML stage threshold whose effective value (less 1e-5 in f32) is
+    1 + 2^-23, the f32 number after 1."""
+    eps = np.float32(1e-5)
+    target = np.float32(1.0) + np.float32(2.0 ** -23)
+    t = np.float32(target + eps)
+    assert np.float32(t - eps) == target
+    return t
+
+
+def _classes(base):
+    """base's own Stage and WeakTree classes: the model functions below take a
+    model of either package (the tests write the JAX package's as XML)."""
+    return type(base.stages[0]), type(base.stages[0].trees[0])
+
+
+def _stump(tree_cls, feature, thr, left, right):
+    return tree_cls(left=np.array([0], np.int32), right=np.array([-1], np.int32),
+                    feature_idx=np.array([feature], np.int32),
+                    threshold=np.array([thr], np.float32),
+                    leaf_values=np.array([left, right], np.float32))
+
+
+def knife_edge_model(base):
+    """One stage of five stumps on the first two features of base's stage
+    0 (a 20x20 upright Haar cascade), leaves chosen so that the f32 and the
+    f64 stage sums differ: tree 0 gives 1 (left) or 0, tree 1 gives 2^-22
+    (left) or 2^-25, trees 2-4 always 2^-25, and the effective stage
+    threshold is 1 + 2^-23. Where trees 0 and 1 go left both sums pass;
+    where tree 0 goes left and tree 1 right the f32 sum stays at 1 (each
+    2^-25 is a quarter of an f32 step there and rounds away) and fails,
+    while the f64 sum reaches 1 + 2^-23 and passes, as OpenCV's double
+    sum does; elsewhere both fail."""
+    stage_cls, tree_cls = _classes(base)
+    t0, t1 = base.stages[0].trees[:2]
+    feats = [base.features[int(t.feature_idx[0])] for t in (t0, t1)]
+    tiny = np.float32(2.0 ** -25)
+    trees = [_stump(tree_cls, 0, t0.threshold[0], 1.0, 0.0),
+             _stump(tree_cls, 1, t1.threshold[0], np.float32(2.0 ** -22), tiny)]
+    trees += [_stump(tree_cls, 0, t0.threshold[0], tiny, tiny) for _ in range(3)]
+    stage = stage_cls(threshold=float(knife_threshold()), trees=trees)
+    return dataclasses.replace(base, stages=[stage], features=feats)
+
+
+def lbp_two_node_model(base, n_stages: int = 3):
+    """base's (an LBP cascade of stumps) first n_stages with their trees
+    paired into 2-node trees: tree 2i's node is the root, whose left child
+    is tree 2i+1's node and whose right is tree 2i's right leaf; the child's
+    leaves are tree 2i+1's. The stage threshold is half the stage's, so
+    that some windows pass each stage."""
+    stage_cls, tree_cls = _classes(base)
+    stages = []
+    for st in base.stages[:n_stages]:
+        trees = []
+        for a, b in zip(st.trees[0::2], st.trees[1::2]):
+            trees.append(tree_cls(
+                left=np.array([1, -1], np.int32), right=np.array([0, -2], np.int32),
+                feature_idx=np.array([a.feature_idx[0], b.feature_idx[0]], np.int32),
+                subsets=np.stack([a.subsets[0], b.subsets[0]]).astype(np.int32),
+                leaf_values=np.array([a.leaf_values[1], b.leaf_values[0], b.leaf_values[1]],
+                                     np.float32),
+            ))
+        stages.append(stage_cls(threshold=st.threshold / 2, trees=trees))
+    return dataclasses.replace(base, stages=stages, max_depth=2)
+
+
+def truncated(model, n_stages: int):
+    return dataclasses.replace(model, stages=list(model.stages[:n_stages]))
+
+
+def policy_edge_cases():
+    """(label, model, exacts) of every tile-kernel policy beyond the f32
+    stump one: the cascades of ``knife_edge_model``, ``lbp_two_node_model``,
+    the f64 stump cascades, Haar node trees upright (alt2) and tilted
+    (eye_tree, 3 nodes, cut to 4 stages), and LBP stumps. Every policy runs
+    in f32 and f64 on alt2 and the LBP frontal face; the tilted node trees
+    and the 2-node LBP trees, which add no instantiation, in f64 only. The
+    stage ranges to run come from ``policy_ranges``."""
+    def xml(name):
+        return read_cascade_xml(os.path.join(DATA, name))
+
+    frontal = xml("haarcascade_frontalface_alt.xml")
+    lbp = xml("lbpcascade_frontalface.xml")
+    return [
+        ("stump f64, frontal face", frontal, (True,)),
+        ("stump f64, upper body (tilted)", xml("haarcascade_upperbody.xml"), (True,)),
+        ("knife edge (stumps)", knife_edge_model(frontal), (False, True)),
+        ("node, alt2", xml("haarcascade_frontalface_alt2.xml"), (False, True)),
+        ("node, eye_tree cut to 4 stages (tilted, 3 nodes)",
+         truncated(xml("haarcascade_eye_tree_eyeglasses.xml"), 4), (True,)),
+        ("lbp, frontal face", lbp, (False, True)),
+        ("lbp 2-node trees", lbp_two_node_model(lbp), (True,)),
+    ]
+
+
+def policy_ranges(n_stages: int, use_stage: bool):
+    """Stage ranges for a cascade of n_stages: every stage, the first,
+    all but the first and a middle chunk (stage kernel); or the front's
+    ranges clipped to the cascade (every stage for a one-stage cascade)."""
+    if n_stages == 1:
+        return ((0, 1),)
+    if use_stage:
+        cand = ((0, n_stages), (0, 1), (1, n_stages), (min(5, n_stages), min(9, n_stages)))
+    else:
+        cand = tuple((min(a, n_stages), min(b, n_stages)) for a, b in FRONT_RANGES)
+    return tuple(dict.fromkeys(cand))
 
 
 def block_lists(alive) -> dict:
@@ -145,11 +270,11 @@ def block_lists(alive) -> dict:
     }
 
 
-def packed_edge_mismatches(cascade, device):
+def packed_edge_mismatches(cascade, device, exact: bool = False):
     """packed_front over every shape x mask x block list x stage range
     against its twin, and against ``front`` where every block is listed
     → (cases run, survivors summed, descriptions of the cases that
-    differ)."""
+    differ). exact: f64 stage sums."""
     n, survivors, bad = 0, 0, []
     for k, (out_h, out_w) in enumerate(PACKED_SHAPES):
         sum2d, _, inv_nf = edge_inputs(k, out_h, out_w, cascade, device, False)
@@ -157,11 +282,11 @@ def packed_edge_mismatches(cascade, device):
             for lname, (blk, nblk) in block_lists(alive).items():
                 for s0, s1 in PACKED_RANGES:
                     args = (sum2d, inv_nf, alive, blk, nblk, cascade, s0, s1)
-                    got = packed_front(*args)
-                    same = torch.equal(got, packed_front(*args, impl="ref"))
+                    got = packed_front(*args, exact=exact)
+                    same = torch.equal(got, packed_front(*args, impl="ref", exact=exact))
                     if lname in ("every block", "reverse order", "stray entries"):
                         same = same and torch.equal(
-                            got, front(sum2d, inv_nf, alive, cascade, s0, s1))
+                            got, front(sum2d, inv_nf, alive, cascade, s0, s1, exact=exact))
                     n += 1
                     survivors += int(got.sum())
                     if not same:

@@ -78,14 +78,47 @@ edges:
                 and as int32 up to 2^20 (both sums wrap). Each kernel
                 twice on frame 0's 1080p inputs with equal outputs, and
                 the front's stages through the stage kernel (the same tile
-                kernel with its dense pass compiled in), timed
+                kernel with its dense pass compiled in), timed. Then the
+                tile kernel's other policies on the same shapes and masks
+                (utils/edges.py: policy_edge_cases), f32 and f64: front and
+                stage on the frontal face and the upper body (stage) in
+                f64, on a hand-built knife-edge stump cascade whose f32 and
+                f64 stage sums fall on both sides of its threshold, Haar
+                node trees (alt2; eye_tree cut to 4 stages, tilted, 3
+                nodes, stage only), LBP stumps and a hand-built LBP cascade
+                of 2-node trees; packed_front in f64 on its edge lists
+
+The f64 stage sums (exact=True, the detector's default; every phase above
+runs exact=False):
+
+  (p) exact     kernels front and packed_front (frontal face, plain stack
+                and shelf-packed) and stage (upper body) in f64 vs their
+                twins at 1080p; frames 0-3 (frontal, plain stack) and 0-1
+                (shelf-packed with the packed front; upper body) equal the
+                twin path, frames 0 and 1 equal both goldens at
+                minNeighbors 3 and 0; f64 kernel times beside the f32 ones
+
+The node-tree and LBP cascades, every stage in the tile kernel:
+
+  (q) deep      haarcascade_frontalface_alt2.xml (20 stages, 1 047 trees of
+                2 nodes, upright): kernel stage (node-tree policy) vs its
+                twin over every stage, kernel front vs its twin over stages
+                1..19 of the fused engine's prep mask, both in f32 and f64;
+                engines "auto" ("pallas") and "fused" at exact True and
+                False: frames 0 and 1 equal data/smoke_golden_alt2_1080p
+                .json at minNeighbors 3 and 0; timing and phase table
+  (r) lbp       lbpcascade_frontalface.xml (20 stages, 139 LBP stumps,
+                24x24), the same checks against data/smoke_golden_lbp_1080p
+                .json
 
 and last, per kernel at its path's shapes: time against its twin, the
 least time the card could take (bytes over 3.35 TB/s or operations over
 67 TFLOP/s, the H100 SXM's published rates), and one PyTorch call that
 computes the same function where one exists (for the integral, which has
 none, the int32 input's time and the chained torch.cumsum composite's
-beside it); then each path traced with
+beside it); the new policies' operations count the nodes each window
+visits on its path (the twin's path counts, dense.window_node_visits);
+then each path traced with
 torch.profiler over 4 frames (device time, idle share, launches, host
 synchronizations: the packed front's may not exceed the dense front's).
 Exits non-zero on any mismatch, and without CUDA. The last line is
@@ -107,6 +140,7 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, device memory
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+F64_OPS_PER_S = 34e12  # H100 SXM, float64 outside the tensor cores
 
 
 def fail(msg: str):
@@ -155,6 +189,32 @@ def cascade_ops(cas, s0: int, evaluated) -> int:
     return sum(int(n) * stage_ops(cas.stages[s0 + i]) for i, n in enumerate(evaluated))
 
 
+LBP_NODE_OPS = 47  # 27 cell-sum adds, 8 compares, 7 ors, 4 subset shifts and masks, the select
+
+
+def walk_ops(cas, sum2d, tilt2d, inv_nf, out_w, evaluated) -> int:
+    """Operations of a stage run in which the windows of flat indices
+    evaluated[si] went through stage si, counting the nodes each window
+    visits on its path (dense.window_node_visits): a Haar node of k
+    weighted rects 6k + 2 (stage_ops less the leaf add), an LBP node
+    LBP_NODE_OPS; then one leaf add a tree and the stage compare."""
+    from cascadeclassifier_tpu_torch.detect.dense import window_node_visits
+
+    total = 0
+    for si, idx in evaluated.items():
+        st = cas.stages[si]
+        inv = None if inv_nf is None else inv_nf.reshape(-1)[idx]
+        visits = window_node_visits(sum2d, tilt2d if cas.has_tilted else None, st, idx, out_w,
+                                    inv, cas.is_lbp)
+        total += sum(v * (LBP_NODE_OPS if cas.is_lbp else 6 * k + 2) for k, v in visits.items())
+        total += int(idx.numel()) * (st.ntrees + 1)
+    return total
+
+
+def flat_alive(mask):
+    return torch.nonzero(mask.reshape(-1)).squeeze(1)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA device")
@@ -164,6 +224,7 @@ def main():
     from cascadeclassifier_tpu_torch import _build
     from cascadeclassifier_tpu_torch.detect.dense import dense_variance_gate
     from cascadeclassifier_tpu_torch.detect.detector import (
+        PackedCascade,
         TorchDetector,
         build_pixel_canvas,
         positions_to_rects,
@@ -187,6 +248,8 @@ def main():
         edge_mismatches,
         integral_edge_mismatches,
         packed_edge_mismatches,
+        policy_edge_cases,
+        policy_ranges,
         tilted_edge_mismatches,
     )
     from cascadeclassifier_tpu_torch.utils.synth import synth_frame
@@ -605,6 +668,105 @@ def main():
           f"same stages through the stage kernel {via_ms:.4f} ms; phase took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # the tile kernel's other policies at the same edges, f32 and f64
+    t0 = time.perf_counter()
+    knife = {}
+    for label, m_e, exacts in policy_edge_cases():
+        c_e = PackedCascade.from_model(m_e)
+        for exact in exacts:
+            for use_stage in (True, False):
+                if c_e.has_tilted and not use_stage:
+                    continue
+                ranges = policy_ranges(len(c_e.stages), use_stage)
+                n_cases, n_alive, bad = edge_mismatches(c_e, ranges, dev, use_stage, exact)
+                torch.cuda.synchronize()
+                kern = "stage" if use_stage else "front"
+                check(not bad, f"(o) {kern}, {label}, exact={exact}: kernel != twin at {bad}")
+                if label.startswith("knife") and use_stage:
+                    knife[exact] = n_alive
+                print(f"(o) edges, {kern} ({c_e.kind} policy, {'f64' if exact else 'f32'}), "
+                      f"{label}: {n_cases} cases (3 shapes x 4 masks x stage ranges "
+                      f"{list(ranges)}) equal to the twin (tolerance: exact); {n_alive} "
+                      "survivors in all", flush=True)
+    check(knife[False] != knife[True], "(o) the knife-edge cascade: f32 and f64 agree")
+    n_cases, n_alive, bad = packed_edge_mismatches(cas, dev, exact=True)
+    torch.cuda.synchronize()
+    check(not bad, f"(o) packed_front f64: kernel != twin or != front at {bad}")
+    print(f"(o) edges, packed_front (f64), frontal face: {n_cases} cases equal to the twin and "
+          f"to the front kernel where every block is listed (tolerance: exact); {n_alive} "
+          f"survivors; knife-edge survivors f32 {knife[False]} vs f64 {knife[True]}; the "
+          f"policies took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ------------------------------------------------------------------
+    # (p) exact: f64 stage sums, the detector's default
+    t0 = time.perf_counter()
+    ctx = dict(dev=dev, frames=frames, sf=SF, smi=smi, timed=timed, work=work,
+               launches=launches, errs=errs, max_abs_err=max_abs_err)
+    det_x = TorchDetector(model, device=dev, pack_band=False)
+    check(det_x.exact and det_x.engine_name == "fused", "exact=True is not the default")
+    det_xp = TorchDetector(model, device=dev, packed_front=True)
+    det_bx = TorchDetector(body, device=dev)
+    check(det_bx.exact and det_bx.engine_name == "pallas", "upper body: not exact on pallas")
+    inv_x, alive_x = det_x.engine.prep(s_k, q_k, plan)
+    fx = kernel_vs_twin("front (f64)", lambda **kw: front(s_k, inv_x, alive_x, cas, 1, n_dense,
+                                                          exact=True, **kw), ctx)
+    inv_xp, alive_xp = det_xp.engine.prep(sp_k, qp_k, plan_p)
+    blk_x, nblk_x = live_block_list(alive_xp)
+    pfx = kernel_vs_twin("packed_front (f64)", lambda **kw: packed_front(
+        sp_k, inv_xp, alive_xp, blk_x, nblk_x, cas, 1, n_dense, exact=True, **kw), ctx)
+    check(torch.equal(pfx, front(sp_k, inv_xp, alive_xp, cas, 1, n_dense, exact=True)),
+          "(p) packed_front f64 != front f64 on the same inputs")
+    sx = kernel_vs_twin("stage (f64)", lambda **kw: stage(sb, t_k, inv_b, alive_b, cas_b, 0,
+                                                          n_st, exact=True, **kw), ctx)
+    print(f"(p) exact: kernels front ({int(fx.sum())} survivors of {int(alive_x.sum())}), "
+          f"packed_front and stage ({int(sx[0].sum())} after all {n_st} stages) in f64 equal "
+          "their twins at 1080p (tolerance: exact)", flush=True)
+    paths_x = (("frontal face, plain stack", det_x, plan, 4, golden, "front"),
+               ("frontal face, shelf-packed, packed front", det_xp, plan_p, 2, golden,
+                "packed_front"),
+               ("upper body", det_bx, plan_b, 2, golden_ub, "stage"))
+    for label, d, pl, n_twin, gold, kern in paths_x:
+        d_ref = TorchDetector(d.model, device=dev, impl="ref", pack_band=d.pack_band,
+                              packed_front=kern == "packed_front")
+        counts, got_x = e2e(d, frames, SF, range(max(n_twin, 2)), (kern,))
+        for k in range(n_twin):
+            check(np.array_equal(got_x[k], d_ref.raw_windows(frames[k], SF)[1]),
+                  f"(p) {label} frame {k}: kernel path != twin path")
+        check_golden(f"(p) {label}", pl, got_x, gold)
+        launches[f"{kern} (f64)"] = (counts[kern], len(got_x))
+        print(f"(p) e2e exact, {label}: frames 0-{n_twin - 1} raw windows "
+              f"{[len(got_x[k]) for k in range(n_twin)]} equal to the twin path; frames 0,1 "
+              f"equal the OpenCV golden at minNeighbors 3 and 0; launches {counts}", flush=True)
+    for label, d, *_ in paths_x:
+        detection_timing(f"p, {label}", d, frames, SF, smi)
+    fx_eval = [int(alive_x.sum())] + [
+        int(front(s_k, inv_x, alive_x, cas, 1, s, exact=True).sum()) for s in range(2, n_dense)]
+    fxp_eval = [int(alive_xp.sum())] + [
+        int(front(sp_k, inv_xp, alive_xp, cas, 1, s, exact=True).sum()) for s in range(2, n_dense)]
+    sx_eval = [plan_b.out_h * plan_b.out_w] + [
+        int(stage(sb, t_k, inv_b, alive_b, cas_b, 0, s, exact=True)[0].sum())
+        for s in range(1, n_st)]
+    n_listed_x = int(listed_windows(blk_x, nblk_x, plan_p.out_h, plan_p.out_w).sum())
+    work["front (f64)"] = bound(4 * hw + 6 * n_win, cascade_ops(cas, 1, fx_eval))
+    work["packed_front (f64)"] = bound(10 * n_listed_x + 8 * int(nblk_x[0]) + 4,
+                                       cascade_ops(cas, 1, fxp_eval))
+    work["stage (f64)"] = bound(2 * 4 * sb.numel() + 7 * plan_b.out_h * plan_b.out_w,
+                                cascade_ops(cas_b, 0, sx_eval))
+    f64_adds = sum(n * cas_b.stages[i].ntrees for i, n in enumerate(sx_eval))
+    print(f"(p) stage (f64): {f64_adds} f64 adds take {f64_adds / F64_OPS_PER_S * 1e3:.4f} ms "
+          f"at 34 TFLOP/s, under the f32-rate bound {work['stage (f64)'][0]:.4f} ms, which "
+          f"stays; phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    profiled = [("frontal face exact, plain stack", det_x), ("upper body exact", det_bx)]
+
+    # ------------------------------------------------------------------
+    # (q) node trees and (r) LBP: every stage in the tile kernel
+    for tag, xml_name, golden_name in (
+        ("q", "haarcascade_frontalface_alt2.xml", "smoke_golden_alt2_1080p.json"),
+        ("r", "lbpcascade_frontalface.xml", "smoke_golden_lbp_1080p.json"),
+    ):
+        profiled += cascade_phase(tag, os.path.join(data, xml_name),
+                                  os.path.join(data, golden_name), img0, ctx)
+
     meta = {
         "integral": ("cascadeclassifier_tpu_torch/csrc/integral.cu",
                      "cascadeclassifier_tpu/detect/pallas_integral.py:50"),
@@ -621,16 +783,38 @@ def main():
                          "cascadeclassifier_tpu/detect/pallas_front.py:326; "
                          "cascadeclassifier_tpu/detect/pallas_front.py:470"),
     }
+    stump_f64 = "; cascadeclassifier_tpu/detect/dense.py:160 (XLA dense_stage_haar, exact)"
+    meta.update({
+        "front (f64)": (meta["front"][0], meta["front"][1] + stump_f64),
+        "packed_front (f64)": (meta["packed_front"][0], meta["packed_front"][1] + stump_f64),
+        "stage (f64)": (meta["stage"][0], meta["stage"][1] + stump_f64),
+        "stage (node)": ("cascadeclassifier_tpu_torch/csrc/tile_node.cu",
+                         "cascadeclassifier_tpu/detect/pallas_stage.py:92; "
+                         "cascadeclassifier_tpu/detect/dense.py:292 (XLA dense_stage_deep)"),
+        "front (node)": ("cascadeclassifier_tpu_torch/csrc/tile_node.cu",
+                         "cascadeclassifier_tpu/detect/pallas_front.py:610; "
+                         "cascadeclassifier_tpu/detect/dense.py:292 (XLA dense_stage_deep)"),
+        "stage (lbp)": ("cascadeclassifier_tpu_torch/csrc/tile_lbp.cu",
+                        "cascadeclassifier_tpu/detect/pallas_stage.py:92; "
+                        "cascadeclassifier_tpu/detect/dense.py:202 (XLA dense_stage_lbp)"),
+        "front (lbp)": ("cascadeclassifier_tpu_torch/csrc/tile_lbp.cu",
+                        "cascadeclassifier_tpu/detect/pallas_front.py:610; "
+                        "cascadeclassifier_tpu/detect/dense.py:202 (XLA dense_stage_lbp)"),
+    })
     kernels = []
     for name, (fk, fr, flib, plain_reps) in timed.items():
         ms = cuda_ms(fk, 20)
-        plain_ms = cuda_ms(fr, plain_reps)
+        plain_ms = fr if isinstance(fr, float) else cuda_ms(fr, plain_reps)
         library_ms = cuda_ms(flib, 20) if flib is not None else None
         bound_ms, bound_by = work[name]
         extra = integral_extra if name == "integral" else {}
+        n_launch = launches[name]
+        if isinstance(n_launch, tuple):  # (launches, frames) of a newer path
+            extra = {"launches_per_frame": n_launch[0] / n_launch[1]}
+            n_launch = n_launch[0]
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": launches[name],
+            "replaces": meta[name][1], "launches": n_launch,
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, **extra,
         })
@@ -641,7 +825,7 @@ def main():
     syncs = {}
     for name, d in (("frontal face", det), ("upper body", det_b),
                     ("frontal face shelf-packed", shelf[False]),
-                    ("frontal face shelf-packed, packed front", shelf[True])):
+                    ("frontal face shelf-packed, packed front", shelf[True]), *profiled):
         syncs[name] = profile(name, d, frames[:4], SF)
     check(syncs["frontal face shelf-packed, packed front"] <= syncs["frontal face shelf-packed"],
           "the packed front adds host synchronizations")
@@ -651,6 +835,148 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}), flush=True)
+
+
+def kernel_vs_twin(name: str, run, ctx):
+    """run(impl=...) through the kernel and its twin on the card, equal
+    bit for bit → the kernel's output; records the max abs error, and the
+    kernel and twin calls for the timing table."""
+    got = run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = run(impl="ref")
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3  # the twin's one call, timed here
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    ctx["errs"][name] = max(ctx["max_abs_err"](g, w) for g, w in pairs)
+    check(all(torch.equal(g, w) for g, w in pairs), f"kernel {name} != its twin")
+    ctx["timed"][name] = (run, plain_ms, None, 1)
+    return got
+
+
+def e2e(det, frames, sf, ks, kernels):
+    """Raw windows of frames ks through det with the launches counted from
+    0 → (counts, {k: windows}); each of kernels was launched."""
+    from cascadeclassifier_tpu_torch import _build
+
+    _build.LAUNCHES.clear()
+    got = {k: det.raw_windows(frames[k], sf)[1] for k in ks}
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    for name in kernels:
+        check(counts.get(name, 0) > 0, f"kernel {name} was not launched on the main path")
+    return counts, got
+
+
+def check_golden(label: str, plan, got, golden):
+    """The golden's frames, grouped at minNeighbors 3 and 0, equal its rects."""
+    from cascadeclassifier_tpu_torch.detect.detector import TorchDetector
+
+    for g in golden["frames"]:
+        for mn in (3, 0):
+            ours = sorted(map(list, TorchDetector.group(plan, got[g["k"]], mn).tolist()))
+            check(ours == g[f"rects_mn{mn}"],
+                  f"{label} frame {g['k']} minNeighbors {mn}: {len(ours)} rects vs "
+                  f"{len(g[f'rects_mn{mn}'])} in the OpenCV golden")
+
+
+def cascade_phase(tag: str, xml: str, golden_path: str, img0, ctx) -> list:
+    """(q) / (r): a node-tree or LBP cascade at 1080p, every stage in the
+    tile kernel → [(label, detector)] to profile."""
+    from cascadeclassifier_tpu_torch.detect.dense import dense_variance_gate
+    from cascadeclassifier_tpu_torch.detect.detector import TorchDetector, build_pixel_canvas
+    from cascadeclassifier_tpu_torch.detect.front import front
+    from cascadeclassifier_tpu_torch.detect.integral import integral
+    from cascadeclassifier_tpu_torch.detect.stage import stage
+    from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml
+
+    t0 = time.perf_counter()
+    dev, frames, sf = ctx["dev"], ctx["frames"], ctx["sf"]
+    with open(golden_path) as f:
+        golden = json.load(f)
+    for g in golden["frames"]:
+        check(hashlib.sha256(frames[g["k"]].tobytes()).hexdigest() == g["sha256"],
+              f"({tag}) synth frame {g['k']} differs from the golden's")
+    model = read_cascade_xml(xml)
+    det_a = TorchDetector(model, device=dev)
+    c = det_a.packed
+    check(det_a.exact and det_a.engine_name == "pallas",
+          f"({tag}) {c.kind} cascade routed to {det_a.engine_name}")
+    n = len(c.stages)
+    pol = c.kind
+    # the stage kernel on the stage engine's canvas, every stage
+    plan_a = det_a.plan_for(1920, 1080, sf, None, None)
+    levels_a, grid_a = det_a.engine._plan_tensors(plan_a)[:2]
+    s_a, q_a = integral(build_pixel_canvas(img0, plan_a, levels_a))
+    inv_a, alive_a = None, grid_a
+    if not c.is_lbp:
+        gate_a, inv_a = dense_variance_gate(s_a, q_a, c.win_w, c.win_h, plan_a.out_h,
+                                            plan_a.out_w)
+        alive_a = gate_a & grid_a
+    for exact in (False, True):
+        name = f"stage ({pol})" if exact else f"stage ({pol}, f32)"
+        a_k, p_k = kernel_vs_twin(name, lambda exact=exact, **kw: stage(
+            s_a, s_a, inv_a, alive_a, c, 0, n, exact=exact, **kw), ctx)
+        print(f"({tag}) stage ({pol} policy, {'f64' if exact else 'f32'}): stages 0-{n - 1}, "
+              f"{int(alive_a.sum())} windows in, {int(p_k.sum())} pass stage 0, "
+              f"{int(a_k.sum())} all; alive and passed0 equal to the twin (tolerance: exact)",
+              flush=True)
+    del ctx["timed"][f"stage ({pol}, f32)"]
+    # the front kernel on the fused engine's prep mask (shelf-packed plan)
+    det_f = TorchDetector(model, device=dev, engine="fused")
+    plan_f = det_f.plan_for(1920, 1080, sf, None, None)
+    px_f = build_pixel_canvas(img0, plan_f, det_f.engine._plan_tensors(plan_f)[0], torch.uint8)
+    s_f, q_f = integral(px_f)
+    check(det_f.engine.n_dense == n, f"({tag}) the fused engine left stages to a tail")
+    for exact in (False, True):
+        d_e = det_f if exact else TorchDetector(model, exact=False, device=dev, engine="fused")
+        inv_f, alive_f = d_e.engine.prep(s_f, q_f, plan_f)
+        name = f"front ({pol})" if exact else f"front ({pol}, f32)"
+        f_k = kernel_vs_twin(name, lambda exact=exact, inv_f=inv_f, alive_f=alive_f, **kw: front(
+            s_f, inv_f, alive_f, c, 1, n, exact=exact, **kw), ctx)
+        print(f"({tag}) front ({pol} policy, {'f64' if exact else 'f32'}): stages 1-{n - 1} on "
+              f"the shelf-packed canvas, {int(alive_f.sum())} windows after prep, "
+              f"{int(f_k.sum())} after; equal to the twin (tolerance: exact)", flush=True)
+    del ctx["timed"][f"front ({pol}, f32)"]
+    # end to end: both engines, both modes, against the OpenCV golden
+    for engine in ("pallas", "fused"):
+        for exact in (True, False):
+            d = {("pallas", True): det_a, ("fused", True): det_f}.get((engine, exact)) or \
+                TorchDetector(model, exact=exact, device=dev, engine=engine)
+            kern = "stage" if engine == "pallas" else "front"
+            counts, got = e2e(d, frames, sf, (0, 1), (kern,))
+            check("patchify" not in counts and "packed_front" not in counts,
+                  f"({tag}) {engine}: a tail or the packed front ran")
+            check_golden(f"({tag}) {engine}, exact={exact}", d.plan_for(1920, 1080, sf, None,
+                                                                         None), got, golden)
+            if exact:
+                ctx["launches"][f"{kern} ({pol})"] = (counts[kern], len(got))
+            print(f"({tag}) e2e {os.path.basename(xml)}, engine {engine}"
+                  f"{' (auto)' if engine == 'pallas' else ''}, exact={exact}: frames 0,1 raw "
+                  f"windows {[len(x) for x in got.values()]}, equal to the OpenCV golden at "
+                  f"minNeighbors 3 and 0 ({[len(g['rects_mn3']) for g in golden['frames']]} and "
+                  f"{[len(g['rects_mn0']) for g in golden['frames']]} rects); launches {counts}",
+                  flush=True)
+    for d in (det_a, det_f):
+        detection_timing(f"{tag}, {os.path.basename(xml)}", d, frames, sf, ctx["smi"])
+    # bounds: the nodes each window visits, f64 sums at the f32 rate
+    n_win = plan_a.out_h * plan_a.out_w
+    ev_a = {0: torch.arange(n_win, device=dev)}
+    ev_a.update({si: flat_alive(stage(s_a, s_a, inv_a, alive_a, c, 0, si, exact=True)[0])
+                 for si in range(1, n)})
+    per_win = 3 if c.is_lbp else 7  # inv_nf (Haar), the masks in and out, passed0
+    ctx["work"][f"stage ({pol})"] = bound(4 * s_a.numel() + per_win * n_win,
+                                          walk_ops(c, s_a, s_a, inv_a, plan_a.out_w, ev_a))
+    inv_f, alive_f = det_f.engine.prep(s_f, q_f, plan_f)
+    ev_f = {1: flat_alive(alive_f)}
+    ev_f.update({si: flat_alive(front(s_f, inv_f, alive_f, c, 1, si, exact=True))
+                 for si in range(2, n)})
+    n_win_f = plan_f.out_h * plan_f.out_w
+    ctx["work"][f"front ({pol})"] = bound(4 * s_f.numel() + (2 if c.is_lbp else 6) * n_win_f,
+                                          walk_ops(c, s_f, s_f, inv_f, plan_f.out_w, ev_f))
+    print(f"({tag}) phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return [(f"{os.path.basename(xml)}, auto (pallas)", det_a),
+            (f"{os.path.basename(xml)}, fused", det_f)]
 
 
 def detection_timing(phase: str, det, frames, sf, smi):

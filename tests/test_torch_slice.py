@@ -19,6 +19,7 @@ from cascadeclassifier_tpu.models.xml_io import (  # noqa: E402
     read_cascade_xml as jread_cascade_xml,
 )
 from cascadeclassifier_tpu_torch.detect.detector import TorchDetector  # noqa: E402
+from cascadeclassifier_tpu_torch.models.model import FEATURE_HOG  # noqa: E402
 from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml  # noqa: E402
 
 from .utils_synth import face_blob_image  # noqa: E402
@@ -126,9 +127,15 @@ def test_max_det_raises_as_the_jax_detector_does():
 
 
 def test_detector_refuses_what_is_not_ported():
+    """exact=True, the default as in the JAX package, builds; a HOG cascade
+    still raises, as TPUDetector's packing does; "cuda" without a card
+    raises."""
     m = read_cascade_xml(HAAR_ALT)
+    assert TorchDetector(m, device="cpu").exact
+    det = TorchDetector(m, exact=True, device="cpu")
+    assert det.exact and det.engine.exact and det.engine_name == "fused"
     with pytest.raises(NotImplementedError):
-        TorchDetector(m, exact=True, device="cpu")
+        TorchDetector(dataclasses.replace(m, feature_type=FEATURE_HOG), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             TorchDetector(m, device="cuda")
@@ -168,8 +175,8 @@ def test_engine_routing():
         TorchDetector(body, device="cpu", engine="fused")
     with pytest.raises(ValueError):
         TorchDetector(body, device="cpu", engine="xla")
-    with pytest.raises(NotImplementedError):
-        TorchDetector(body, exact=True, device="cpu")
+    det = TorchDetector(body, exact=True, device="cpu")
+    assert det.engine_name == "pallas" and det.engine.exact
 
 
 def test_plan_layout_routing():

@@ -44,7 +44,7 @@ from cascadeclassifier_tpu_torch.detect.dense import (  # noqa: E402
 )
 from cascadeclassifier_tpu_torch.detect.detector import PackedCascade  # noqa: E402
 from cascadeclassifier_tpu_torch.detect.stage import stage  # noqa: E402
-from cascadeclassifier_tpu_torch.models.model import FEATURE_LBP  # noqa: E402
+from cascadeclassifier_tpu_torch.models.model import FEATURE_HOG, FEATURE_LBP  # noqa: E402
 from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml  # noqa: E402
 from cascadeclassifier_tpu_torch.utils.edges import (  # noqa: E402
     STAGE_RANGES,
@@ -177,6 +177,10 @@ def test_packing_of_tilted_cascades():
 
 
 def test_packing_rejects_what_is_not_ported_or_escapes_the_window():
+    """A tilted rect whose corner (x−h, y+h) leaves the window is refused
+    (upright it is inside); an LBP cascade and a node-tree stage now pack
+    (HOG still raises, as the JAX package's packing does), and a node
+    whose rect leaves the window is refused too."""
     m = read_cascade_xml(UPPERBODY)
     st = PackedCascade.from_model(m).stages[0]
     ti = int(np.nonzero(st.tilted)[0][0])
@@ -189,7 +193,10 @@ def test_packing_rejects_what_is_not_ported_or_escapes_the_window():
     up = dataclasses.replace(st, feat_rects=bad, tilted=np.zeros_like(st.tilted))
     PackedCascade(win_w=WIN_W, win_h=WIN_H, stages=[up])
     with pytest.raises(NotImplementedError):
-        PackedCascade.from_model(dataclasses.replace(m, feature_type=FEATURE_LBP))
+        PackedCascade.from_model(dataclasses.replace(m, feature_type=FEATURE_HOG))
+    lbp = PackedCascade.from_model(read_cascade_xml(os.path.join(
+        os.path.dirname(UPPERBODY), "lbpcascade_frontalface.xml")))
+    assert lbp.feature_type == FEATURE_LBP and lbp.kind == "lbp"
     tree = m.stages[0].trees[0]
     deep = dataclasses.replace(
         tree, left=np.array([1, 0], np.int32), right=np.array([-1, -2], np.int32),
@@ -198,8 +205,12 @@ def test_packing_rejects_what_is_not_ported_or_escapes_the_window():
         leaf_values=np.array([0.1, -0.1, 0.2], np.float32),
     )
     deep_stage = dataclasses.replace(m.stages[0], trees=[deep, *m.stages[0].trees[1:]])
-    with pytest.raises(NotImplementedError):
-        PackedCascade.from_model(dataclasses.replace(m, stages=[deep_stage]))
+    packed = PackedCascade.from_model(dataclasses.replace(m, stages=[deep_stage]))
+    assert packed.kind == "node" and packed.stages[0].deep_trees is not None
+    feats = list(m.features)
+    feats[1] = dataclasses.replace(feats[1], rects=[(WIN_W - 1, 0, 2, 2, 1.0)], tilted=False)
+    with pytest.raises(ValueError):
+        PackedCascade.from_model(dataclasses.replace(m, stages=[deep_stage], features=feats))
 
 
 @pytest.mark.cuda
