@@ -30,7 +30,7 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("integral.cu", "front.cu", "patchify.cu", "tilted.cu", "stage.cu",
-           "packed_front.cu", "tile_node.cu", "tile_lbp.cu")
+           "packed_front.cu", "tile_node.cu", "tile_lbp.cu", "split_scan.cu")
 # included by front.cu, stage.cu, packed_front.cu, tile_node.cu and tile_lbp.cu
 HEADERS = ("cascade_tile.cuh",)
 NVCC_FLAGS = (
@@ -46,6 +46,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 _SIGNATURES = {
     # px, px element bytes, sum, sq, band sums and carry, h, w, band rows,
     # stream
@@ -73,6 +74,8 @@ _SIGNATURES = {
     "cct_stage": [_P, _P, _I, _I, _P, _P, _P, _P, _I,
                   _I, _I, _I, _I, _I, _P, _I, _I, _P,
                   _P, _P, _P, _I, _I, _P],
+    # vs, ws, rs, kept, n, b, levels, total_w, total_r, q, thr, stream
+    "cct_split_scan": [_P, _P, _P, _P, _I, _I, _I, _D, _D, _P, _P, _P],
 }
 
 _lib = None

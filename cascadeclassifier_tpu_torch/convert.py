@@ -1,6 +1,6 @@
 """Carry state from the JAX package into the port.
 
-Both functions read only the numpy attributes of the JAX package's
+Every function reads only the numpy attributes of the JAX package's
 objects, so this module imports no jax: the caller hands over objects it
 already built (the tests do, to run both packages on the same cascade and
 geometry).
@@ -17,6 +17,7 @@ from cascadeclassifier_tpu_torch.models.model import (
     FEATURE_LBP,
     HaarFeature,
     LBPFeature,
+    Stage,
     WeakTree,
 )
 
@@ -77,3 +78,34 @@ def plan_from_jax(plan) -> PyramidPlan:
     return PyramidPlan(
         **{f: getattr(plan, f) for f in PyramidPlan.__dataclass_fields__}
     )
+
+
+def stages_from_jax(stages) -> list:
+    """A JAX trainer's ``stages`` (``Stage`` objects with global feature
+    indices) → the port's, for a port trainer or predictor to start from."""
+    return [Stage(threshold=float(s.threshold), trees=[_tree(t) for t in s.trees])
+            for s in stages]
+
+
+def boost_params_from_jax(params):
+    """``cascadeclassifier_tpu.train.boost.BoostParams`` → the port's."""
+    from cascadeclassifier_tpu_torch.train.boost import BoostParams
+
+    return BoostParams(**{f: getattr(params, f) for f in BoostParams.__dataclass_fields__})
+
+
+def trainer_from_jax(trainer, device="cuda"):
+    """A JAX ``CascadeTrainer`` → a port ``CascadeTrainer`` with the same
+    window, Haar mode, boosting parameters, budgets, mining batch and
+    stages, on device."""
+    from cascadeclassifier_tpu_torch.train.trainer import CascadeTrainer
+
+    ours = CascadeTrainer(
+        feature_type=int(trainer.feature_type), win_w=int(trainer.win_w),
+        win_h=int(trainer.win_h), haar_mode=int(trainer.haar_mode),
+        boost=boost_params_from_jax(trainer.boost), mining_batch=int(trainer.mining_batch),
+        precalc_val_mb=trainer.precalc_val_mb, precalc_idx_mb=trainer.precalc_idx_mb,
+        device=device,
+    )
+    ours.stages = stages_from_jax(trainer.stages)
+    return ours

@@ -74,6 +74,10 @@ class Stage:
     threshold: float
     trees: List[WeakTree]
 
+    @property
+    def weak_count(self):
+        return len(self.trees)
+
 
 @dataclasses.dataclass
 class CascadeModel:
@@ -94,6 +98,10 @@ class CascadeModel:
     max_cat_count: int = 0
     feat_size: int = 1
     haar_mode: str = "BASIC"
+
+    @property
+    def num_stages(self):
+        return len(self.stages)
 
     def uses_tilted(self) -> bool:
         return self.feature_type == FEATURE_HAAR and any(

@@ -1,12 +1,343 @@
-"""LBP codes (plain PyTorch).
+"""Feature catalogs and evaluators.
 
-A copy of ``cascadeclassifier_tpu/ops/features.py::lbp_code_grid``: the
-port cannot import the JAX package.
+The Haar catalog (numpy) is a copy of
+``cascadeclassifier_tpu/ops/features.py``: the port imports nothing of the
+JAX package. Catalogs are generated in **exactly the enumeration order of
+the reference generator** (haarfeatures.cpp:127-251): variable indices
+stored in cascade XML index into this order. ``eval_haar`` and
+``lbp_code_grid`` are plain PyTorch.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
+
+HAAR_BASIC, HAAR_CORE, HAAR_ALL = 0, 1, 2
+_HAAR_MODE_NAMES = {"BASIC": HAAR_BASIC, "CORE": HAAR_CORE, "ALL": HAAR_ALL}
+
+
+def haar_mode_id(mode) -> int:
+    if isinstance(mode, str):
+        return _HAAR_MODE_NAMES[mode.upper()]
+    return int(mode)
+
+
+def sum_offsets(x, y, w, h, stride):
+    """Corner offsets of an upright rect in a flattened integral image.
+
+    Mirrors CV_SUM_OFFSETS (traincascade_features.h:41-50):
+      p0=(x,y) p1=(x+w,y) p2=(x,y+h) p3=(x+w,y+h); rectsum = S[p0]-S[p1]-S[p2]+S[p3].
+    """
+    p0 = x + stride * y
+    p1 = x + w + stride * y
+    p2 = x + stride * (y + h)
+    p3 = x + w + stride * (y + h)
+    return p0, p1, p2, p3
+
+
+def tilted_offsets(x, y, w, h, stride):
+    """Corner offsets of a 45°-tilted rect in a flattened tilted integral.
+
+    Mirrors CV_TILTED_OFFSETS (traincascade_features.h:54-63).
+    """
+    p0 = x + stride * y
+    p1 = x - h + stride * (y + h)
+    p2 = x + w + stride * (y + w)
+    p3 = x + w - h + stride * (y + w + h)
+    return p0, p1, p2, p3
+
+
+# --------------------------------------------------------------------------
+# Haar
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class HaarCatalog:
+    """All Haar features for a window, in reference enumeration order.
+
+    rects   : (F, 3, 4) int32 — (x, y, w, h); zero-size for unused slots
+    weights : (F, 3) float32  — 0.0 for unused slots
+    tilted  : (F,) bool
+    win_w, win_h : window size the catalog was generated for
+    mode    : HAAR_BASIC / HAAR_CORE / HAAR_ALL
+    """
+
+    rects: np.ndarray
+    weights: np.ndarray
+    tilted: np.ndarray
+    win_w: int
+    win_h: int
+    mode: int
+
+    def __len__(self):
+        return self.rects.shape[0]
+
+    def corner_offsets(self) -> np.ndarray:
+        """(F, 3, 4) int32 flat offsets into (win_h+1)*(win_w+1) rows."""
+        stride = self.win_w + 1
+        x, y = self.rects[:, :, 0], self.rects[:, :, 1]
+        w, h = self.rects[:, :, 2], self.rects[:, :, 3]
+        up = np.stack(sum_offsets(x, y, w, h, stride), axis=-1)
+        ti = np.stack(tilted_offsets(x, y, w, h, stride), axis=-1)
+        out = np.where(self.tilted[:, None, None], ti, up).astype(np.int32)
+        # unused slots (w==0) could produce negative offsets for tilted rects;
+        # clamp to 0 — their weight is 0 so the gathered value is ignored.
+        return np.clip(out, 0, None)
+
+
+def haar_catalog(win_w: int, win_h: int, mode=HAAR_BASIC) -> HaarCatalog:
+    """Enumerate Haar features exactly as haarfeatures.cpp:127-251.
+
+    Loop order is x, y, dx, dy (dx/dy from 1), and for each combination the
+    applicable templates are appended in the fixed order
+    x2, y2, x3, y3, [x4, y4], x2_y2, [center3x3], [6 tilted kinds].
+    The implementation is vectorized: each template contributes the set of
+    valid (x, y, dx, dy) tuples; a lexicographic (x, y, dx, dy, template)
+    sort key then reproduces the exact append order.
+    """
+    mode = haar_mode_id(mode)
+    W, H = win_w, win_h
+    x = np.arange(W, dtype=np.int64)[:, None, None, None]
+    y = np.arange(H, dtype=np.int64)[None, :, None, None]
+    dx = np.arange(1, W + 1, dtype=np.int64)[None, None, :, None]
+    dy = np.arange(1, H + 1, dtype=np.int64)[None, None, None, :]
+
+    # template table: (rank, condition, tilted, rect constructor)
+    # each constructor returns (rects(3,4), weights(3)) as numpy expressions over
+    # the selected x/y/dx/dy vectors.
+    entries = []  # (key, rects(n,3,4), weights(3), tilted)
+
+    def emit(rank, cond, tilted_flag, build):
+        idx = np.nonzero(np.broadcast_to(cond, (W, H, W, H)))
+        if idx[0].size == 0:
+            return
+        xs, ys = x.ravel()[idx[0]], y.ravel()[idx[1]]
+        dxs, dys = dx.ravel()[idx[2]], dy.ravel()[idx[3]]
+        rects, weights = build(xs, ys, dxs, dys)
+        key = (((xs * H + ys) * W + (dxs - 1)) * H + (dys - 1)) * 32 + rank
+        entries.append((key, rects, weights, tilted_flag))
+
+    def R(*rect_weight_pairs):
+        """Build (n,3,4) rects + (3,) weights from up to 3 (x,y,w,h,wt)."""
+
+        def build(n, pairs):
+            rects = np.zeros((n, 3, 4), np.int32)
+            weights = np.zeros((3,), np.float32)
+            for i, (rx, ry, rw, rh, wt) in enumerate(pairs):
+                rects[:, i, 0] = rx
+                rects[:, i, 1] = ry
+                rects[:, i, 2] = rw
+                rects[:, i, 3] = rh
+                weights[i] = wt
+            return rects, weights
+
+        return build, rect_weight_pairs
+
+    rank = 0
+
+    def add(cond, tilted_flag, make_pairs):
+        nonlocal rank
+        r = rank
+        rank += 1
+
+        def build(xs, ys, dxs, dys):
+            pairs = make_pairs(xs, ys, dxs, dys)
+            n = xs.shape[0]
+            rects = np.zeros((n, 3, 4), np.int32)
+            weights = np.zeros((3,), np.float32)
+            for i, (rx, ry, rw, rh, wt) in enumerate(pairs):
+                rects[:, i, 0] = rx
+                rects[:, i, 1] = ry
+                rects[:, i, 2] = rw
+                rects[:, i, 3] = rh
+                weights[i] = wt
+            return rects, weights
+
+        emit(r, cond, tilted_flag, build)
+
+    # haar_x2
+    add(
+        (x + dx * 2 <= W) & (y + dy <= H),
+        False,
+        lambda xs, ys, dxs, dys: [
+            (xs, ys, dxs * 2, dys, -1.0),
+            (xs + dxs, ys, dxs, dys, +2.0),
+        ],
+    )
+    # haar_y2
+    add(
+        (x + dx <= W) & (y + dy * 2 <= H),
+        False,
+        lambda xs, ys, dxs, dys: [
+            (xs, ys, dxs, dys * 2, -1.0),
+            (xs, ys + dys, dxs, dys, +2.0),
+        ],
+    )
+    # haar_x3
+    add(
+        (x + dx * 3 <= W) & (y + dy <= H),
+        False,
+        lambda xs, ys, dxs, dys: [
+            (xs, ys, dxs * 3, dys, -1.0),
+            (xs + dxs, ys, dxs, dys, +2.0),
+        ],
+    )
+    # haar_y3
+    add(
+        (x + dx <= W) & (y + dy * 3 <= H),
+        False,
+        lambda xs, ys, dxs, dys: [
+            (xs, ys, dxs, dys * 3, -1.0),
+            (xs, ys + dys, dxs, dys, +2.0),
+        ],
+    )
+    if mode != HAAR_BASIC:
+        # haar_x4
+        add(
+            (x + dx * 4 <= W) & (y + dy <= H),
+            False,
+            lambda xs, ys, dxs, dys: [
+                (xs, ys, dxs * 4, dys, -1.0),
+                (xs + dxs, ys, dxs * 2, dys, +2.0),
+            ],
+        )
+        # haar_y4
+        add(
+            (x + dx <= W) & (y + dy * 4 <= H),
+            False,
+            lambda xs, ys, dxs, dys: [
+                (xs, ys, dxs, dys * 4, -1.0),
+                (xs, ys + dys, dxs, dys * 2, +2.0),
+            ],
+        )
+    # x2_y2 (checkerboard)
+    add(
+        (x + dx * 2 <= W) & (y + dy * 2 <= H),
+        False,
+        lambda xs, ys, dxs, dys: [
+            (xs, ys, dxs * 2, dys * 2, -1.0),
+            (xs, ys, dxs, dys, +2.0),
+            (xs + dxs, ys + dys, dxs, dys, +2.0),
+        ],
+    )
+    if mode != HAAR_BASIC:
+        # 3x3 center-surround
+        add(
+            (x + dx * 3 <= W) & (y + dy * 3 <= H),
+            False,
+            lambda xs, ys, dxs, dys: [
+                (xs, ys, dxs * 3, dys * 3, -1.0),
+                (xs + dxs, ys + dys, dxs, dys, +9.0),
+            ],
+        )
+    if mode == HAAR_ALL:
+        # tilted haar_x2
+        add(
+            (x + 2 * dx <= W) & (y + 2 * dx + dy <= H) & (x - dy >= 0),
+            True,
+            lambda xs, ys, dxs, dys: [
+                (xs, ys, dxs * 2, dys, -1.0),
+                (xs, ys, dxs, dys, +2.0),
+            ],
+        )
+        # tilted haar_y2
+        add(
+            (x + dx <= W) & (y + dx + 2 * dy <= H) & (x - 2 * dy >= 0),
+            True,
+            lambda xs, ys, dxs, dys: [
+                (xs, ys, dxs, 2 * dys, -1.0),
+                (xs, ys, dxs, dys, +2.0),
+            ],
+        )
+        # tilted haar_x3
+        add(
+            (x + 3 * dx <= W) & (y + 3 * dx + dy <= H) & (x - dy >= 0),
+            True,
+            lambda xs, ys, dxs, dys: [
+                (xs, ys, dxs * 3, dys, -1.0),
+                (xs + dxs, ys + dxs, dxs, dys, +3.0),
+            ],
+        )
+        # tilted haar_y3
+        add(
+            (x + dx <= W) & (y + dx + 3 * dy <= H) & (x - 3 * dy >= 0),
+            True,
+            lambda xs, ys, dxs, dys: [
+                (xs, ys, dxs, 3 * dys, -1.0),
+                (xs - dys, ys + dys, dxs, dys, +3.0),
+            ],
+        )
+        # tilted haar_x4
+        add(
+            (x + 4 * dx <= W) & (y + 4 * dx + dy <= H) & (x - dy >= 0),
+            True,
+            lambda xs, ys, dxs, dys: [
+                (xs, ys, dxs * 4, dys, -1.0),
+                (xs + dxs, ys + dxs, dxs * 2, dys, +2.0),
+            ],
+        )
+        # tilted haar_y4
+        add(
+            (x + dx <= W) & (y + dx + 4 * dy <= H) & (x - 4 * dy >= 0),
+            True,
+            lambda xs, ys, dxs, dys: [
+                (xs, ys, dxs, 4 * dys, -1.0),
+                (xs - dys, ys + dys, dxs, 2 * dys, +2.0),
+            ],
+        )
+
+    keys = np.concatenate([e[0] for e in entries])
+    rects = np.concatenate(
+        [e[1] for e in entries], axis=0, dtype=np.int32, casting="unsafe"
+    )
+    weights = np.concatenate(
+        [np.broadcast_to(e[2], (e[1].shape[0], 3)) for e in entries], axis=0
+    ).astype(np.float32)
+    tilted = np.concatenate(
+        [np.full((e[1].shape[0],), e[3], bool) for e in entries]
+    )
+    order = np.argsort(keys, kind="stable")
+    return HaarCatalog(
+        rects=rects[order],
+        weights=weights[order],
+        tilted=tilted[order],
+        win_w=win_w,
+        win_h=win_h,
+        mode=mode,
+    )
+
+
+def eval_haar(sum_flat, tilted_flat, normfactor, offsets, weights, tilted_mask):
+    """Haar responses for a batch of samples × a block of features.
+
+    sum_flat    : (N, P) int32 flattened integral rows (P=(h+1)*(w+1))
+    tilted_flat : (N, P) int32 or None when the block has no tilted features
+    normfactor  : (N,) float32 per-sample normalization
+    offsets     : (F, 3, 4) int corner offsets
+    weights     : (F, 3) float32
+    tilted_mask : (F,) bool or None
+    returns     : (N, F) float32 — CvHaarEvaluator::operator()
+                  (haarfeatures.h:108-122): Σ w_r·rectsum_r / nf, 0 if nf==0.
+    """
+    flat_idx = offsets.reshape(-1).long()
+
+    def rectsums(img_flat):
+        g = img_flat[:, flat_idx].reshape(img_flat.shape[0], offsets.shape[0], 3, 4)
+        return g[..., 0] - g[..., 1] - g[..., 2] + g[..., 3]  # (N, F, 3)
+
+    if tilted_flat is None or tilted_mask is None:
+        rs = rectsums(sum_flat)
+    else:
+        rs = torch.where(tilted_mask[None, :, None], rectsums(tilted_flat), rectsums(sum_flat))
+    # three exact small-integer products per feature: any order is exact
+    resp = (rs.to(torch.float32) * weights[None]).sum(dim=2)
+    nf = normfactor[:, None]
+    return torch.where(nf != 0.0, resp / torch.where(nf == 0.0, 1.0, nf), 0.0)
+
 
 # (row, col, bit) of the 8 outer cells: 128 at the top left, then clockwise
 # around the centre (CvLBPEvaluator::Feature::calc)

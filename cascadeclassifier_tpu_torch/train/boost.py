@@ -1,0 +1,326 @@
+"""Boosted cascade-stage trainer (GAB, stumps).
+
+Counterpart of ``cascadeclassifier_tpu/train/boost.py`` (CvCascadeBoost,
+boost.cpp:166-518, with the CvBoostTree split search of
+o_cvboostree.cpp): per stage, every feature's values over the samples are
+evaluated block-wise (train/evaluators.py) and sorted with a stable sort
+(the tie order of equal values decides the kept positions); per weak
+tree, the exact weighted split of every feature comes from the split
+kernel (train/split.py) and the first maximum across blocks wins.
+Boosting state (weights, trimming, the stage threshold) stays numpy f64
+on the host, mirroring update_weights (boost.cpp:168-407), trim_weights
+(o_cvboost.cpp:101-139) and isErrDesired (boost.cpp:479-518).
+
+Ported: Gentle AdaBoost with stumps (max_depth 1). DAB, RAB, LB,
+max_depth > 1 and a device mesh raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from cascadeclassifier_tpu_torch.models.model import BOOST_GAB, Stage, WeakTree
+from cascadeclassifier_tpu_torch.train.split import split_scan, tree_sum
+
+FLT_EPSILON = np.float32(1.1920929e-07)
+CV_THRESHOLD_EPS = 1e-5
+
+
+@dataclasses.dataclass
+class BoostParams:
+    boost_type: int = BOOST_GAB
+    min_hit_rate: float = 0.995
+    max_false_alarm: float = 0.5
+    weight_trim_rate: float = 0.95
+    max_depth: int = 1
+    weak_count: int = 100
+    min_sample_count: int = 10
+
+
+def check_supported(params: BoostParams, mesh=None):
+    """Raise NotImplementedError for what the port does not train."""
+    if params.boost_type != BOOST_GAB:
+        raise NotImplementedError("the port trains GAB only: DAB, RAB and LB are not ported")
+    if params.max_depth != 1:
+        raise NotImplementedError("the port trains stumps only (max_depth 1)")
+    if mesh is not None:
+        raise NotImplementedError("the port trains on one device: no mesh")
+
+
+class FeatureCache:
+    """Per-stage feature values and sort machinery over the current
+    samples (the reference's valCache / sorted-index buf,
+    o_cvcascadeboosttraindata.cpp:246-273).
+
+    ``val_buf_mb`` caps resident raw values, ``idx_buf_mb`` the resident
+    sort machinery, at block granularity and with the JAX package's byte
+    counts: a value block is blk·n·4 bytes, an index block blk·n·17.
+    Blocks past the value budget recompute their values on every access;
+    blocks past the index budget re-sort on every access and take the
+    generic split path.
+
+    Sorted views are sample-major, (N, B), as the split kernel reads them."""
+
+    def __init__(self, evaluator, val_buf_mb: float | None = None,
+                 idx_buf_mb: float | None = None):
+        self.ev = evaluator
+        nb = evaluator.num_blocks()
+        n = evaluator.n
+        blk = evaluator.block_size
+        if val_buf_mb is None:
+            self.n_val = nb
+        else:
+            self.n_val = min(nb, int(val_buf_mb * 2**20 // (4 * n * blk)))
+        if idx_buf_mb is None:
+            self.n_idx = nb
+        else:
+            self.n_idx = min(nb, int(idx_buf_mb * 2**20 // (17 * n * blk)))
+        self.n_idx = min(self.n_idx, self.n_val)
+        self.num_blocks = nb
+        self.values = [None] * nb  # (B, N) f32
+        self.vs = [None] * nb  # (N, B) sorted values, resident blocks
+        self.order = [None] * nb  # (N, B) stable sort order, resident blocks
+        for b in range(nb):
+            if b < self.n_val:
+                self.values[b] = evaluator.values_block(b)
+            if b < self.n_idx:
+                self.order[b], self.vs[b] = self.sorted_block(b)
+        self.valid_sorted = None
+        self.aux_sorted = None
+
+    def block_values(self, b):
+        """Raw (B, N) values of block b, resident or recomputed."""
+        if self.values[b] is not None:
+            return self.values[b]
+        return self.ev.values_block(b)
+
+    def sorted_block(self, b):
+        """(sort order, sorted values) of block b by a stable sort, both
+        sample-major (N, B) and contiguous; resident blocks keep theirs."""
+        if self.order[b] is not None:
+            return self.order[b], self.vs[b]
+        vs, si = torch.sort(self.block_values(b), dim=1, stable=True)
+        return si.t().contiguous(), vs.t().contiguous()
+
+    def set_stage(self, valid, aux):
+        """Per-stage sorted views of validity (bool) and the responses (f32:
+        GAB targets are exactly ±1) for the resident blocks."""
+        dev = self.ev.device
+        vj = torch.as_tensor(valid, device=dev)
+        aj = torch.as_tensor(np.asarray(aux, np.float32), device=dev)
+        self.valid_sorted = [None] * self.num_blocks
+        self.aux_sorted = [None] * self.num_blocks
+        for b in range(self.num_blocks):
+            if self.order[b] is not None:
+                self.valid_sorted[b] = vj[self.order[b]]
+                self.aux_sorted[b] = aj[self.order[b]]
+
+    def var_base(self, b):
+        return self.ev.block_slice(b)[0]
+
+
+def fast_inputs(cache: FeatureCache, b: int, w_dev, wthr: float):
+    """Split inputs of a resident block at a tree root, where the subsample
+    is valid & (w >= wthr) (boost.py:527 _block_split_fast): the weights
+    carried into each feature's order, kept = sorted validity & the
+    trim threshold, rs = ws · the sorted ±1 targets."""
+    ws_raw = w_dev[cache.order[b]]
+    kept = cache.valid_sorted[b] & (ws_raw >= wthr)
+    ws = torch.where(kept, ws_raw, 0.0)
+    return cache.vs[b], ws, ws * cache.aux_sorted[b], kept
+
+
+def generic_inputs(cache: FeatureCache, b: int, w_dev, resp_dev, mask_dev):
+    """Split inputs of any block under any mask (boost.py:129
+    _ordered_split_block): values sorted now, masked weights and
+    weight·responses gathered into the sort order."""
+    order, vs = cache.sorted_block(b)
+    wm = torch.where(mask_dev, w_dev, 0.0)
+    return vs, wm[order], (wm * resp_dev)[order], mask_dev[order]
+
+
+def best_of_block(q):
+    """(max, first index of the max) on the device."""
+    qm = q.max()
+    n = q.shape[0]
+    idx = torch.arange(n, device=q.device)
+    return qm, torch.where(q == qm, idx, n).min().clamp(max=n - 1)
+
+
+class StageTrainer:
+    """Trains one boosted stage; mirrors CvCascadeBoost::train
+    (boost.cpp:409-459). val_buf_mb / idx_buf_mb: precalc buffer budgets
+    (-precalcValBufSize / -precalcIdxBufSize)."""
+
+    def __init__(self, evaluator, params: BoostParams, val_buf_mb: float | None = None,
+                 idx_buf_mb: float | None = None):
+        check_supported(params)
+        self.ev = evaluator
+        self.params = params
+        self.val_buf_mb = val_buf_mb
+        self.idx_buf_mb = idx_buf_mb
+
+    # -- weak-tree construction --------------------------------------------
+
+    def _find_best_split(self, cache, w, resp, mask, wthr=None):
+        """Global best split across every feature → (var_idx, thr) or None.
+
+        wthr: at a tree root the subsample is valid & (w >= wthr) (mask is
+        exactly that) and the resident blocks take the fast path; other blocks, and any other
+        mask, take the generic path. The totals are summed once, in the
+        original sample order (f64 summation order is part of the
+        arithmetic being replicated)."""
+        dev = self.ev.device
+        w_dev = torch.as_tensor(w, dtype=torch.float64, device=dev)
+        resp_dev = torch.as_tensor(resp, dtype=torch.float64, device=dev)
+        mask_dev = torch.as_tensor(mask, device=dev)
+        wm = np.where(mask, w, 0.0)
+        total_w, total_r = tree_sum(wm), tree_sum(wm * resp)
+        qs, ids, thrs = [], [], []
+        for b in range(cache.num_blocks):
+            if wthr is not None and cache.vs[b] is not None:
+                inputs = fast_inputs(cache, b, w_dev, wthr)
+            else:
+                inputs = generic_inputs(cache, b, w_dev, resp_dev, mask_dev)
+            q, thr = split_scan(*inputs, total_w, total_r)
+            qm, i = best_of_block(q)
+            qs.append(qm)
+            ids.append(i)
+            thrs.append(thr[i])
+        qs = torch.stack(qs).cpu().numpy()  # one fetch for every block
+        ids = torch.stack(ids).cpu().numpy()
+        thrs = torch.stack(thrs).cpu().numpy()
+        best_q, best = -np.inf, None
+        for b in range(cache.num_blocks):
+            # strict >: earlier blocks win ties (the ascending feature scan)
+            if np.isfinite(qs[b]) and qs[b] > best_q:
+                best_q = float(qs[b])
+                best = (cache.var_base(b) + int(ids[b]), np.float32(thrs[b]))
+        return best
+
+    def _values_of_var(self, cache, var_idx: int) -> np.ndarray:
+        b = var_idx // self.ev.block_size
+        if cache.values[b] is not None:
+            row = cache.values[b][var_idx - cache.var_base(b)]
+        else:
+            row = self.ev.values_for_vars([var_idx])[0]
+        return row.cpu().numpy()
+
+    def _node_value(self, w, resp, node_mask) -> np.float32:
+        """Weighted mean response (calc_node_value, o_cvboostree.cpp:699-727),
+        both sums in the original sample order."""
+        wm = np.where(node_mask, w, 0.0)
+        return np.float32(tree_sum(wm * resp) / tree_sum(wm))
+
+    def _train_tree(self, cache, w, resp, mask, wthr=None):
+        """Grow one stump → (WeakTree, per-sample predictions), or
+        (None, None) when the root cannot split."""
+        p = self.params
+        if int(mask.sum()) <= p.min_sample_count:
+            return None, None
+        split = self._find_best_split(cache, w, resp, mask, wthr)
+        if split is None:
+            return None, None
+        var_idx, thr = split
+        vals = self._values_of_var(cache, var_idx)
+        go_left = vals <= thr
+        lmask, rmask = mask & go_left, mask & ~go_left
+        if lmask.sum() == 0 or rmask.sum() == 0:
+            return None, None
+        leaves = [self._node_value(w, resp, lmask), self._node_value(w, resp, rmask)]
+        tree = WeakTree(
+            left=np.array([0], np.int32), right=np.array([-1], np.int32),
+            feature_idx=np.array([var_idx], np.int32),
+            threshold=np.array([thr], np.float32),
+            leaf_values=np.array(leaves, np.float32),
+        )
+        preds = np.where(go_left, leaves[0], leaves[1]).astype(np.float64)
+        return tree, preds
+
+    # -- boosting loop ------------------------------------------------------
+
+    def train(self, labels: np.ndarray, valid: np.ndarray | None = None, verbose=True):
+        """labels: (N,) {0,1}; the evaluator already holds the samples.
+        ``valid`` marks real samples when the batch is padded (padding has
+        zero weight and enters no statistic). → (Stage, per-sample sums),
+        or (None, None) if no tree trained."""
+        p = self.params
+        n = labels.shape[0]
+        if valid is None:
+            valid = np.ones(n, bool)
+        n_real = int(valid.sum())
+        self._valid = valid
+        t0 = time.time()
+        cache = FeatureCache(self.ev, val_buf_mb=self.val_buf_mb, idx_buf_mb=self.idx_buf_mb)
+        if verbose:
+            print(f"Precalculation time: {int(time.time() - t0)}")
+
+        orig = labels.astype(np.int32) * 2 - 1  # {−1, +1}
+        w = np.where(valid, 1.0 / n_real, 0.0)
+        mask = valid.copy()
+        resp = orig.astype(np.float64)
+        cache.set_stage(valid, resp)
+        wthr = -np.inf  # trim threshold: the first subsample is all of valid
+
+        trees = []
+        stage_sums = np.zeros(n, np.float64)
+        threshold = 0.0
+        num_pos = int(((labels == 1) & valid).sum())
+        num_neg = n_real - num_pos
+
+        if verbose:
+            print("+----+---------+---------+")
+            print("|  N |    HR   |    FA   |")
+            print("+----+---------+---------+")
+
+        while True:
+            tree, preds = self._train_tree(cache, w, resp, mask, wthr)
+            if tree is None:
+                break
+            # update_weights, GENTLE (boost.cpp:267-407)
+            w = w * np.exp(-orig * preds)
+            sw = w.sum()
+            if sw > float(FLT_EPSILON):
+                w = w / sw
+            # trim_weights (o_cvboost.cpp:101-139): padding has weight 0 and
+            # consumes no trim budget
+            if 0.0 < p.weight_trim_rate < 1.0:
+                ws = np.sort(w[valid])
+                csum = np.concatenate([[0.0], np.cumsum(ws)])
+                i = int(np.searchsorted(csum[1:], 1.0 - p.weight_trim_rate))
+                thr_w = ws[i] if i < n_real else np.inf
+                mask = valid & (w >= thr_w)
+                wthr = thr_w
+            trees.append(tree)
+            stage_sums = stage_sums + preds
+
+            # isErrDesired (boost.cpp:479-518)
+            pos_sums = np.sort(stage_sums[(labels == 1) & valid])
+            t_idx = int((1.0 - p.min_hit_rate) * num_pos)
+            threshold = float(pos_sums[t_idx])
+            num_pos_true = num_pos - t_idx
+            for i in range(t_idx - 1, -1, -1):
+                if abs(pos_sums[i] - threshold) < float(FLT_EPSILON):
+                    num_pos_true += 1
+            hit_rate = num_pos_true / max(num_pos, 1)
+            neg_sums = stage_sums[(labels == 0) & valid]
+            accepted = neg_sums >= threshold - CV_THRESHOLD_EPS
+            false_alarm = float(accepted.sum()) / num_neg if num_neg else 0.0
+            if verbose:
+                print(f"|{len(trees):>4}|{hit_rate:>9.6g}|{false_alarm:>9.6g}|")
+                print("+----+---------+---------+")
+
+            if not mask.any():
+                break
+            if false_alarm <= p.max_false_alarm:
+                break
+            if len(trees) >= p.weak_count:
+                break
+
+        if not trees:
+            return None, None
+        return Stage(threshold=threshold, trees=trees), stage_sums

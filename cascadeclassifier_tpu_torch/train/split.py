@@ -1,0 +1,210 @@
+"""Best stump split per feature over a sorted block (kernel 7).
+
+Counterpart of ``cascadeclassifier_tpu/train/boost.py::
+_ordered_split_sorted`` (XLA, no Pallas kernel): for every feature of a
+block, the weighted regression split of find_split_ord_reg
+(o_cvboostree.cpp:361-426) — the f64 prefix sums of the sorted weights
+and weight·responses, the next kept value after each position, validity
+(kept, values apart by more than 2·FLT_EPSILON, both sides weighted), the
+quality (lr²·rw + rr²·lw)/(lw·rw), its first maximum and the f32 midpoint
+threshold. A CUDA tensor runs ``csrc/split_scan.cu``; a CPU tensor, or
+``impl="ref"``, runs the plain version.
+
+Blocks are sample-major, (N, B): row i holds each feature's i-th sample in
+that feature's sort order, so the kernel's thread per feature reads its
+column with the warp's loads side by side.
+
+The f64 sums are the point. The first argmax across 162 336 features
+picks a different feature when a quality moves in its last bit, so the
+order of the adds is part of the arithmetic being replicated, and the
+JAX package's is XLA:CPU's: ``jnp.cumsum`` is rewritten
+(ReduceWindowRewriter, base 16) into sequential sums within blocks of 16
+plus the blocks' own prefix, recursively; ``jnp.sum`` is rewritten
+(TreeReductionRewriter) into sequential sums over windows of 32 centred on
+the zero-padded row, recursively. ``scan_cumsum`` and ``tree_sum`` are
+those orders. Each is a chain of IEEE adds, so it is the same on the host
+and on the card, and the kernel keeps it: one thread walks its feature's
+samples in order and carries the block sums of each level.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cascadeclassifier_tpu_torch import _build
+
+SCAN_BASE = 16  # XLA:CPU ReduceWindowRewriter base length (jnp.cumsum)
+SUM_WINDOW = 32  # XLA:CPU TreeReductionRewriter window (jnp.sum)
+FLT_EPSILON = np.float32(1.1920929e-07)
+TWO_FLT_EPSILON = float(2 * FLT_EPSILON)  # 2^-22, added in f32
+
+
+def scan_levels(n: int) -> int:
+    """Block levels of the scan over n samples (0: one sequential run)."""
+    levels = 0
+    while n > SCAN_BASE:
+        n = -(-n // SCAN_BASE)
+        levels += 1
+    return levels
+
+
+def scan_cumsum(x):
+    """Inclusive prefix sums along dim 0 in XLA:CPU's order for
+    ``jnp.cumsum``: for n ≤ 16 one sequential run from 0.0; otherwise
+    sequential runs within blocks of 16, each plus the exclusive prefix
+    of the block totals (the same scan, one level up)."""
+    n = x.shape[0]
+    if n <= SCAN_BASE:
+        out = torch.empty_like(x)
+        acc = torch.zeros_like(x[0])
+        for i in range(n):
+            acc = acc + x[i]
+            out[i] = acc
+        return out
+    nb = -(-n // SCAN_BASE)
+    if n % SCAN_BASE:
+        xp = x.new_zeros((nb * SCAN_BASE,) + tuple(x.shape[1:]))
+        xp[:n] = x
+    else:
+        xp = x.contiguous()
+    blocks = xp.view((nb, SCAN_BASE) + tuple(x.shape[1:]))
+    inner = torch.empty_like(blocks)
+    acc = torch.zeros_like(blocks[:, 0])
+    for j in range(SCAN_BASE):
+        acc = acc + blocks[:, j]
+        inner[:, j] = acc
+    pref = scan_cumsum(inner[:, SCAN_BASE - 1])
+    inner[1:] += pref[:-1, None]
+    inner[:1] += 0.0  # block 0 adds a zero prefix, as XLA does
+    return inner.reshape(xp.shape)[:n]
+
+
+def tree_sum(x) -> float:
+    """Sum of a 1-D f64 array in XLA:CPU's order for ``jnp.sum``: while
+    longer than 32, zero-pad to a multiple of 32 (half the padding in
+    front) and sum each window of 32 sequentially; then one sequential
+    run over what is left."""
+    a = np.asarray(x, np.float64)
+    while a.shape[0] > SUM_WINDOW:
+        n = a.shape[0]
+        padded = -(-n // SUM_WINDOW) * SUM_WINDOW
+        lo = (padded - n) // 2
+        p = np.zeros(padded)
+        p[lo : lo + n] = a
+        blocks = p.reshape(-1, SUM_WINDOW)
+        acc = np.zeros(blocks.shape[0])
+        for j in range(SUM_WINDOW):
+            acc = acc + blocks[:, j]
+        a = acc
+    acc = 0.0
+    for v in a:
+        acc = acc + float(v)
+    return acc
+
+
+def _two_sum(a, b):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a, b):
+    """a·b = p + e exactly (Dekker's product with Veltkamp's split)."""
+    p = a * b
+    ca, cb = 134217729.0 * a, 134217729.0 * b  # 2^27 + 1
+    ah = ca - (ca - a)
+    bh = cb - (cb - b)
+    al, bl = a - ah, b - bh
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def fma(a, b, c):
+    """Correctly rounded a·b + c for f64 tensors without an FMA unit:
+    Boldo and Melquiond's emulation (exact product, exact sum, the low
+    parts added with rounding to odd, one final rounding)."""
+    uh, ul = _two_prod(a, b)
+    th, tl = _two_sum(c, uh)
+    v, err = _two_sum(tl, ul)
+    even = (v.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(v.dtype)
+    v = torch.where((err != 0) & even, torch.nextafter(v, toward), v)
+    return th + v
+
+
+def quality(lw, lr, rw, rr, n: int):
+    """(lr²·rw + rr²·lw)/(lw·rw) as XLA:CPU evaluates it in the JAX
+    package for a scan over n samples: LLVM contracts the sum into one
+    fma, of rr·rr·lw when the scan is rewritten into blocks (n > 16) and of
+    lr·lr·rw when it is one sequential run (n ≤ 16)."""
+    if n > SCAN_BASE:
+        return fma(rr * rr, lw, lr * lr * rw) / (lw * rw)
+    return fma(lr * lr, rw, rr * rr * lw) / (lw * rw)
+
+
+def next_kept(vs, kept):
+    """Per position, the smallest kept value after it (+inf if none): the
+    next kept value, the columns being sorted."""
+    inf = torch.tensor(float("inf"), dtype=vs.dtype, device=vs.device)
+    vk = torch.where(kept, vs, inf)
+    out = torch.empty_like(vk)
+    acc = inf.expand(vs.shape[1])
+    for i in range(vs.shape[0] - 1, -1, -1):
+        out[i] = acc
+        acc = torch.minimum(acc, vk[i])
+    return out
+
+
+def split_scan_ref(vs, ws, rs, kept, total_w: float, total_r: float):
+    """Plain version. vs (N, B) f32 ascending down each column; ws, rs
+    (N, B) f64 masked weights and weight·responses in that order; kept
+    (N, B) bool; total_w, total_r summed in the original sample order →
+    (quality (B,) f64, −inf where no split; threshold (B,) f32)."""
+    n, b = vs.shape
+    lw = scan_cumsum(ws)
+    lr = scan_cumsum(rs)
+    rw = total_w - lw
+    rr = total_r - lr
+    nxt = next_kept(vs, kept)
+    ok = kept & (vs + TWO_FLT_EPSILON < nxt) & torch.isfinite(nxt) & (lw > 0) & (rw > 0)
+    # the numerator's two terms are ≥ 0, so the fma-rounded quality lies
+    # within a few ulps of this one: only positions within 1e-12 of a
+    # column's plain maximum can hold its maximum, and only they take the
+    # (costly) exact evaluation
+    qual0 = lr * lr
+    qual0.mul_(rw).add_((rr * rr).mul_(lw)).div_(lw * rw).masked_fill_(~ok, float("-inf"))
+    bq0 = qual0.max(dim=0).values
+    cand = ok & (qual0 >= bq0 - 1e-12 * bq0.abs())
+    qual = torch.full_like(qual0, float("-inf"))
+    qual[cand] = quality(lw[cand], lr[cand], rw[cand], rr[cand], n)
+    bq = qual.max(dim=0).values
+    posn = torch.arange(n, device=vs.device)[:, None]
+    best = torch.where(qual == bq[None], posn, n).min(dim=0).values.clamp(max=n - 1)
+    bv = vs.gather(0, best[None])[0]
+    bn = nxt.gather(0, best[None])[0]
+    return bq, (bv + bn) * np.float32(0.5)
+
+
+def split_scan(vs, ws, rs, kept, total_w: float, total_r: float, impl: str = "auto"):
+    """Best split of every feature of a sorted (N, B) block; see
+    split_scan_ref for the contract."""
+    if _build.use_ref(vs, impl):
+        return split_scan_ref(vs, ws, rs, kept, total_w, total_r)
+    dev = vs.device
+    _build.require(vs, torch.float32, 2, "vs", dev)
+    _build.require(ws, torch.float64, 2, "ws", dev)
+    _build.require(rs, torch.float64, 2, "rs", dev)
+    _build.require(kept, torch.bool, 2, "kept", dev)
+    n, b = vs.shape
+    if ws.shape != vs.shape or rs.shape != vs.shape or kept.shape != vs.shape or n == 0:
+        raise ValueError(f"split_scan: shapes {[tuple(t.shape) for t in (vs, ws, rs, kept)]}")
+    q = torch.empty(b, dtype=torch.float64, device=dev)
+    thr = torch.empty(b, dtype=torch.float32, device=dev)
+    code = _build.lib().cct_split_scan(
+        vs.data_ptr(), ws.data_ptr(), rs.data_ptr(), kept.data_ptr(), n, b,
+        scan_levels(n), float(total_w), float(total_r), q.data_ptr(), thr.data_ptr(),
+        _build.stream_of(vs),
+    )
+    _build.check(code, "cct_split_scan")
+    _build.LAUNCHES["split_scan"] += 1
+    return q, thr

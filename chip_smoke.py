@@ -111,6 +111,33 @@ The node-tree and LBP cascades, every stage in the tile kernel:
                 24x24), the same checks against data/smoke_golden_lbp_1080p
                 .json
 
+The trainer (24x24 windows, Haar BASIC's 162 336 features, GAB stumps,
+weak_count 100, minHitRate 0.995, maxFalseAlarm 0.5, the CLI's 1024 MB
+budgets):
+
+  (s) training  1200 positives (utils/train_data.py: a ring and a disc on
+                a grey card, jittered) in a .vec and 20 clutter frames of
+                1920x1080 with near-miss decoys as PGM, all numpy. Check 1:
+                stage 0's real blocks (1000 positives + 2000 negatives,
+                5 blocks) at two boosting iterations, the split inputs of
+                the fast and the generic path equal, kernel split_scan on
+                both bit for bit equal to its plain version on the CPU.
+                Check 2: the first 3 stages of the CLI's 20-stage run (its
+                leaf false-alarm target) at 1000 + 2000 samples on the card
+                (the budgets keep 2 value and 0 index blocks: every block
+                takes the generic path), each stage's first mining
+                superbatch's accept masks equal to the CPU's, per-stage
+                times and the phase totals; split_scan launched;
+                params.xml, stage0-2.xml and cascade.xml written and a new
+                trainer resumes from them. Check 3: stage 0 at 200
+                + 400 samples on the card and on the CPU, stage0.xml
+                byte-identical. At 75x32, where the f32 product's partial
+                sums may pass 2^24, the count of values that differ
+                between the card and the CPU is printed (measured, not
+                held). Check 4: cascade.xml reads back to the
+                trained model, and both detector engines give the twin
+                path's raw windows on a 1080p frame with planted marks
+
 and last, per kernel at its path's shapes: time against its twin, the
 least time the card could take (bytes over 3.35 TB/s or operations over
 67 TFLOP/s, the H100 SXM's published rates), and one PyTorch call that
@@ -767,6 +794,10 @@ def main():
         profiled += cascade_phase(tag, os.path.join(data, xml_name),
                                   os.path.join(data, golden_name), img0, ctx)
 
+    # ------------------------------------------------------------------
+    # (s) training
+    training_phase(dev, timed, work, errs, launches)
+
     meta = {
         "integral": ("cascadeclassifier_tpu_torch/csrc/integral.cu",
                      "cascadeclassifier_tpu/detect/pallas_integral.py:50"),
@@ -800,6 +831,9 @@ def main():
         "front (lbp)": ("cascadeclassifier_tpu_torch/csrc/tile_lbp.cu",
                         "cascadeclassifier_tpu/detect/pallas_front.py:610; "
                         "cascadeclassifier_tpu/detect/dense.py:202 (XLA dense_stage_lbp)"),
+        "split_scan": ("cascadeclassifier_tpu_torch/csrc/split_scan.cu",
+                       "cascadeclassifier_tpu/train/boost.py:74 (XLA _ordered_split_sorted, "
+                       "not Pallas)"),
     })
     kernels = []
     for name, (fk, fr, flib, plain_reps) in timed.items():
@@ -835,6 +869,272 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}), flush=True)
+
+
+TRAIN_DIR = os.path.join(HERE, "_train_smoke")  # gitignored, removed at the end
+
+
+class ThreeStages(Exception):
+    """Ends phase (s)'s training run after its third stage."""
+
+
+def split_library(vs, ws, rs, kept, total_w, total_r):
+    """The split search as library calls (torch.cumsum, torch.where,
+    torch.max), for its time only: the cumsum's order is not the JAX
+    package's."""
+    inf = torch.tensor(float("inf"), device=vs.device)
+    lw, lr = torch.cumsum(ws, 0), torch.cumsum(rs, 0)
+    rw, rr = total_w - lw, total_r - lr
+    nxt = torch.flip(torch.cummin(torch.flip(torch.where(kept, vs, inf), [0]), 0).values, [0])
+    nxt = torch.cat([nxt[1:], inf.expand(1, vs.shape[1])])
+    ok = kept & (vs + 2.384185791015625e-07 < nxt) & (lw > 0) & (rw > 0)
+    q, best = torch.max(torch.where(ok, (lr * lr * rw + rr * rr * lw) / (lw * rw),
+                                    float("-inf")), 0)
+    return q, (vs.gather(0, best[None]) + nxt.gather(0, best[None]))[0] * 0.5
+
+
+def training_phase(dev, timed, work, errs, launches):
+    """(s): the trainer on the card at 24x24 Haar BASIC, GAB stumps, the
+    CLI's budgets; see the module docstring."""
+    import shutil
+
+    from cascadeclassifier_tpu_torch import _build
+    from cascadeclassifier_tpu_torch.data.negreader import NegReader
+    from cascadeclassifier_tpu_torch.data.vec import PosReader, write_vec
+    from cascadeclassifier_tpu_torch.detect.detector import TorchDetector, positions_to_rects
+    from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml, write_cascade_xml
+    from cascadeclassifier_tpu_torch.train import boost
+    from cascadeclassifier_tpu_torch.train.split import split_scan, split_scan_ref, tree_sum
+    from cascadeclassifier_tpu_torch.train.trainer import CascadeTrainer
+    from cascadeclassifier_tpu_torch.utils import train_data
+    from cascadeclassifier_tpu_torch.utils.profiling import reset_timings, timings
+
+    t0 = time.perf_counter()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    os.makedirs(TRAIN_DIR)
+    vec = os.path.join(TRAIN_DIR, "pos.vec")
+    write_vec(vec, train_data.positives(1200, 24, seed=7))
+    names = []
+    for k in range(20):
+        names.append(os.path.join(TRAIN_DIR, f"bg{k}.pgm"))
+        train_data.write_pgm(names[-1], train_data.background(1080, 1920, seed=100 + k))
+    bg = os.path.join(TRAIN_DIR, "bg.txt")
+    with open(bg, "w") as f:
+        f.write("\n".join(names) + "\n")
+    print(f"(s) data: 1200 positives 24x24 in a .vec, 20 clutter backgrounds 1920x1080 as "
+          f"PGM, {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- check 1: the kernel on stage 0's blocks at two boosting iterations
+    t1 = time.perf_counter()
+    tr = CascadeTrainer(device=dev)
+    pos = tr._fill_positives(PosReader(vec, 24, 24), 1000, [0])
+    neg = tr._fill_negatives(NegReader(bg, 24, 24, lazy=True), 2000, 0.0, [0])
+    n, n_pad = 3000, 3072  # the trainer pads the sample axis to a multiple of 256
+    samples = np.concatenate([pos, neg, np.zeros((n_pad - n, 24, 24), np.uint8)])
+    labels = np.concatenate([np.ones(1000, np.int32), np.zeros(n_pad - 1000, np.int32)])
+    valid = np.arange(n_pad) < n
+    ev = tr.evaluator
+    ev.set_samples(samples)
+    st = boost.StageTrainer(ev, boost.BoostParams(weak_count=2, max_false_alarm=0.0))
+    calls = []
+    find = st._find_best_split
+
+    def capture(cache, w, resp, mask, wthr=None):
+        calls.append((cache, w.copy(), resp.copy(), mask.copy(), wthr))
+        return find(cache, w, resp, mask, wthr)
+
+    st._find_best_split = capture
+    st.train(labels, valid=valid, verbose=False)
+    check(len(calls) == 2, f"stage 0 took {len(calls)} split searches, expected 2")
+    n_blocks, worst = 0, 0.0
+    full_block = None
+    for it, (cache, w, resp, mask, wthr) in enumerate(calls):
+        w_dev = torch.as_tensor(w, device=dev)
+        r_dev = torch.as_tensor(resp, device=dev)
+        m_dev = torch.as_tensor(mask, device=dev)
+        wm = np.where(mask, w, 0.0)
+        tw, trr = tree_sum(wm), tree_sum(wm * resp)
+        for b in range(cache.num_blocks):
+            fast = boost.fast_inputs(cache, b, w_dev, wthr)
+            gen = boost.generic_inputs(cache, b, w_dev, r_dev, m_dev)
+            check(all(torch.equal(x, y) for x, y in zip(fast, gen)),
+                  f"split inputs of block {b}, iteration {it}: fast and generic paths differ")
+            q_f, thr_f = split_scan(*fast, tw, trr)
+            q_g, thr_g = split_scan(*gen, tw, trr)
+            q_c, thr_c = split_scan_ref(*(x.cpu() for x in fast), tw, trr)
+            for q, thr in ((q_f, thr_f), (q_g, thr_g)):
+                ok = torch.equal(q.cpu(), q_c) and torch.equal(thr.cpu(), thr_c)
+                check(ok, f"split_scan != its plain version on the CPU: block {b}, "
+                          f"iteration {it}")
+            fin = torch.isfinite(q_c)
+            worst = max(worst, float((q_f.cpu()[fin] - q_c[fin]).abs().max()),
+                        float((thr_f.cpu() - thr_c).abs().max()))
+            n_blocks += 1
+            if full_block is None and fast[0].shape[1] == ev.block_size:
+                full_block = (fast, tw, trr)
+    errs["split_scan"] = worst
+    nb, nn = full_block[0][0].shape[1], full_block[0][0].shape[0]
+    print(f"(s) check 1: split_scan bit for bit equal to its plain version on the CPU on "
+          f"{n_blocks} blocks ({cache.num_blocks} blocks x 2 boosting iterations of stage 0, "
+          f"{nn} samples x up to {nb} features), through both callers (fast and generic "
+          f"inputs equal); {time.perf_counter() - t1:.1f} s", flush=True)
+    (vs, ws, rs, kept), tw, trr = full_block
+    timed["split_scan"] = (lambda: split_scan(vs, ws, rs, kept, tw, trr),
+                           lambda: split_scan(vs, ws, rs, kept, tw, trr, impl="ref"),
+                           lambda: split_library(vs, ws, rs, kept, tw, trr), 2)
+    # each input read once, each output written once; the f64 operations
+    # (two scans, the quality, the compares) are far below the bytes' time
+    work["split_scan"] = bound(nn * nb * (4 + 8 + 8 + 1) + nb * (8 + 4), 0)
+    del calls, cache, st, full_block
+    torch.cuda.empty_cache()
+
+    # -- check 2: three stages at full width, the CLI's budgets
+    t2 = time.perf_counter()
+    n_val = min(5, int(1024.0 * 2**20 // (4 * n_pad * ev.block_size)))  # FeatureCache's
+    n_idx = min(n_val, int(1024.0 * 2**20 // (17 * n_pad * ev.block_size)))
+    print(f"(s) check 2: the first 3 stages of a 20-stage run (the CLI's default, whose "
+          f"leaf false-alarm target 0.5^20 keeps mining going), 1000 positives + 2000 "
+          f"negatives (3072 with padding), "
+          f"24x24 BASIC (162336 features, 5 blocks of 32768), GAB stumps, weak_count 100, "
+          f"minHitRate 0.995, maxFalseAlarm 0.5, budgets 1024/1024 MB: {n_val} value "
+          f"blocks and {n_idx} index blocks resident, so every tree re-evaluates "
+          f"{5 - n_val} blocks and every block takes the generic split path", flush=True)
+    mismatches = []
+
+    class Checked(CascadeTrainer):
+        """Holds each stage's first mining superbatch against the CPU, and
+        stops the 20-stage run once 3 stages are trained."""
+
+        def _fill_positives(self, pos, count, consumed):
+            if len(self.stages) == 3:
+                raise ThreeStages
+            return super()._fill_positives(pos, count, consumed)
+
+        def _predictor(self):
+            pred = super()._predictor()
+            real, first = pred.predict_levels, [True]
+            cpu = CascadeTrainer(device="cpu")
+
+            def predict_levels(levels, ww, wh):
+                got = real(levels, ww, wh)
+                if first[0]:
+                    first[0] = False
+                    cpu_pred = type(pred)(lambda: cpu.evaluator, self.stages)
+                    want = cpu_pred.predict_levels(levels, ww, wh)
+                    mismatches.append(int(sum((g != c).sum() for g, c in zip(got, want))))
+                    print(f"(s) stage {len(self.stages)}: first mining superbatch, "
+                          f"{sum(len(g) for g in got)} windows, {int(sum(g.sum() for g in got))}"
+                          f" accepted, {mismatches[-1]} masks differ from the CPU's", flush=True)
+                return got
+
+            pred.predict_levels = predict_levels
+            return pred
+
+    full = os.path.join(TRAIN_DIR, "full")
+    trainer = Checked(device=dev)
+    reset_timings()
+    _build.LAUNCHES.clear()
+    try:  # the CLI's 20-stage run (its leaf false-alarm target), cut after stage 2
+        trainer.train(full, vec, bg, num_pos=1000, num_neg=2000, num_stages=20)
+    except ThreeStages:
+        pass
+    write_cascade_xml(trainer._to_model(), os.path.join(full, "cascade.xml"))
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    launches["split_scan"] = counts.get("split_scan", 0)
+    check(launches["split_scan"] > 0, "kernel split_scan was not launched on the main path")
+    check(len(trainer.stages) == 3, f"the trainer trained {len(trainer.stages)} stages, not 3")
+    check(all(m == 0 for m in mismatches), f"accept masks differ from the CPU's: {mismatches}")
+    files = sorted(os.listdir(full))
+    check(files == ["cascade.xml", "params.xml", "stage0.xml", "stage1.xml", "stage2.xml"],
+          f"checkpoint files {files}")
+    resumed = CascadeTrainer(device=dev)
+    check(resumed.load(full) and len(resumed.stages) == 3 and all(
+        a.threshold == b.threshold and len(a.trees) == len(b.trees)
+        for a, b in zip(resumed.stages, trainer.stages)), "the checkpoint does not resume")
+    tm = timings()
+    for si in range(3):
+        per_stage = {k: tm[k][si] for k in ("fill_positives", "fill_negatives", "set_samples",
+                                            "train_stage")}
+        print(f"(s) stage {si}: {len(trainer.stages[si].trees)} trees, "
+              f"{sum(per_stage.values()):.2f} s (" + ", ".join(
+                  f"{k} {v:.2f}" for k, v in per_stage.items()) + ")", flush=True)
+    print("(s) phase totals (device synchronized at each scope's ends): " + ", ".join(
+        f"{k} {sum(v):.2f} s over {len(v)}" for k, v in sorted(tm.items())), flush=True)
+    n_trees = sum(len(s.trees) for s in trainer.stages)
+    print(f"(s) check 2: params.xml, stage0-2.xml and cascade.xml written, a new trainer "
+          f"resumes the 3 stages from them", flush=True)
+    print(f"(s) check 2: {n_trees} trees, split_scan launched {launches['split_scan']} times "
+          f"({launches['split_scan'] / n_trees:.1f} a tree), {time.perf_counter() - t2:.1f} s",
+          flush=True)
+
+    # -- check 3: stage 0 on the card and on the CPU, byte for byte
+    t3 = time.perf_counter()
+    outs = {}
+    for where in (dev, "cpu"):
+        d = os.path.join(TRAIN_DIR, f"stage0_{torch.device(where).type}")
+        CascadeTrainer(device=where).train(d, vec, bg, num_pos=200, num_neg=400, num_stages=1,
+                                           verbose=False)
+        with open(os.path.join(d, "stage0.xml"), "rb") as f:
+            outs[where] = f.read()
+    check(outs[dev] == outs["cpu"], "stage0.xml trained on the card differs from the CPU's")
+    print(f"(s) check 3: stage 0 at 200 positives + 400 negatives, trained on the card and "
+          f"on the CPU: stage0.xml byte-identical ({len(outs['cpu'])} bytes); "
+          f"{time.perf_counter() - t3:.1f} s", flush=True)
+
+    # -- 75x32 (the barcode window): partial sums may pass 2^24, where the
+    # card's order of f32 adds could differ from the CPU's; measured, not held
+    from cascadeclassifier_tpu_torch.ops.features import haar_catalog
+    from cascadeclassifier_tpu_torch.train.evaluators import HaarTrainEvaluator
+
+    cat = haar_catalog(75, 32, "BASIC")
+    rng = np.random.default_rng(0)
+    x75 = rng.integers(200, 256, (64, 32, 75)).astype(np.uint8)
+    area = cat.rects[:, 0, 2] * cat.rects[:, 0, 3]
+    ids = np.unique(np.concatenate([np.argsort(-area, kind="stable")[:2000],
+                                    rng.choice(len(cat), 20000, replace=False)]))
+    vals = []
+    for where in (dev, "cpu"):
+        ev75 = HaarTrainEvaluator(cat, device=where)
+        ev75.set_samples(x75)
+        vals.append(ev75.values_for_vars(ids).cpu())
+    n_diff = int((vals[0] != vals[1]).sum())
+    print(f"(s) 75x32 BASIC, 64 bright windows x {len(ids)} features (the 2000 largest): "
+          f"{n_diff} of {vals[0].numel()} f32 values differ between the card and the CPU",
+          flush=True)
+
+    # -- check 4: the written cascade reads back and detects
+    t4 = time.perf_counter()
+    read = read_cascade_xml(os.path.join(full, "cascade.xml"))
+    built = trainer._to_model()
+    check(read.num_stages == built.num_stages and read.features == built.features and all(
+        a.threshold == b.threshold and len(a.trees) == len(b.trees) and all(
+            np.array_equal(ta.feature_idx, tb.feature_idx)
+            and np.array_equal(ta.threshold, tb.threshold)
+            and np.array_equal(ta.leaf_values, tb.leaf_values)
+            for ta, tb in zip(a.trees, b.trees))
+        for a, b in zip(read.stages, built.stages)), "cascade.xml does not read back")
+    frame, placed = train_data.background(1080, 1920, seed=4242, marks=8)
+    found = {}
+    for engine in ("fused", "pallas"):
+        det = TorchDetector(read, device=dev, engine=engine)
+        plan, got = det.raw_windows(frame, 1.1)
+        want = TorchDetector(read, device=dev, engine=engine, impl="ref").raw_windows(
+            frame, 1.1)[1]
+        torch.cuda.synchronize()
+        check(torch.equal(torch.as_tensor(got).cpu(), torch.as_tensor(want).cpu()),
+              f"trained cascade, engine {engine}: raw windows differ from the twin path")
+        found[engine] = sorted(map(tuple, positions_to_rects(plan, got).tolist()))
+    check(found["fused"] == found["pallas"] and len(found["fused"]) > 0,
+          f"trained cascade: {len(found['fused'])} and {len(found['pallas'])} raw windows")
+    hits = sum(any(abs(x - px) <= s // 4 and abs(y - py) <= s // 4 and abs(w - s) <= s // 3
+                   for x, y, w, _h in found["fused"]) for px, py, s in placed)
+    print(f"(s) check 4: cascade.xml reads back to the trained model; on a 1080p frame with "
+          f"{len(placed)} planted marks both engines give the same {len(found['fused'])} raw "
+          f"windows, equal to the twin path, {hits} of the marks among them; "
+          f"{time.perf_counter() - t4:.1f} s", flush=True)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    print(f"(s) phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def kernel_vs_twin(name: str, run, ctx):

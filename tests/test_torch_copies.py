@@ -1,6 +1,8 @@
-"""The PyTorch port's numpy copies (XML reader, pyramid plan, grouping,
-packed cascade), the state carried over by convert.py, the synthetic
-frames behind the committed golden, and the port's independence from jax."""
+"""The PyTorch port's numpy copies (XML reader and writer, pyramid plan,
+grouping, packed cascade, .vec I/O, the negative reader, the Haar
+catalogs, the host resize), the state carried over by convert.py, the
+synthetic frames behind the committed golden, and the port's independence
+from jax."""
 
 import dataclasses
 import hashlib
@@ -195,7 +197,8 @@ def test_port_imports_without_jax():
         "        mod = importlib.import_module(node.module)\n"
         "        for a in node.names: getattr(mod, a.name)\n"
         "import chip_smoke\n"
-        "for m in ('detect.stage', 'detect.tilted', 'detect.packed_front', 'detect.engine', 'utils.golden'):\n"
+        "for m in ('detect.stage', 'detect.tilted', 'detect.packed_front', 'detect.engine', 'utils.golden',\n"
+        "          'train.trainer', 'train.split', 'utils.train_data'):\n"
         "    assert 'cascadeclassifier_tpu_torch.' + m in sys.modules, m\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'cascadeclassifier_tpu.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
@@ -204,3 +207,71 @@ def test_port_imports_without_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0 and r.stdout.strip() == "OK", r.stderr
+
+
+def test_vec_copy_matches_original(tmp_path):
+    from cascadeclassifier_tpu.data import vec as jvec
+    from cascadeclassifier_tpu_torch.data import vec
+
+    s = np.random.default_rng(4).integers(0, 256, (7, 24, 24)).astype(np.uint8)
+    vec.write_vec(str(tmp_path / "a.vec"), s)
+    jvec.write_vec(str(tmp_path / "b.vec"), s)
+    assert (tmp_path / "a.vec").read_bytes() == (tmp_path / "b.vec").read_bytes()
+    np.testing.assert_array_equal(vec.read_vec(str(tmp_path / "b.vec"), 24, 24),
+                                  jvec.read_vec(str(tmp_path / "a.vec"), 24, 24))
+
+
+def test_negreader_copy_matches_original(tmp_path):
+    from cascadeclassifier_tpu.data import negreader as jnegreader
+    from cascadeclassifier_tpu_torch.data import negreader
+    from cascadeclassifier_tpu_torch.utils.train_data import background, write_pgm
+
+    names = []
+    for k, (h, w) in enumerate(((70, 90), (48, 130))):
+        names.append(str(tmp_path / f"bg{k}.pgm"))
+        write_pgm(names[-1], background(h, w, seed=k))
+    (tmp_path / "bg.txt").write_text("\n".join(names) + "\n")
+    bg = str(tmp_path / "bg.txt")
+    ours, theirs = negreader.NegReader(bg, 20, 20), jnegreader.NegReader(bg, 20, 20)
+    np.testing.assert_array_equal(ours.take_batch(150), theirs.take_batch(150))
+    assert (ours.last, ours.round, ours.point, ours.scale) == (
+        theirs.last, theirs.round, theirs.point, theirs.scale)
+
+
+@pytest.mark.parametrize("mode", ["BASIC", "CORE", "ALL"])
+def test_haar_catalog_copy_matches_original(mode):
+    from cascadeclassifier_tpu.ops import features as jfeatures
+    from cascadeclassifier_tpu_torch.ops import features
+
+    a, b = features.haar_catalog(20, 16, mode), jfeatures.haar_catalog(20, 16, mode)
+    for f in ("rects", "weights", "tilted"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    assert (a.win_w, a.win_h, a.mode) == (b.win_w, b.win_h, b.mode)
+
+
+def test_resize_np_copy_matches_original():
+    from cascadeclassifier_tpu.ops import resize as jresize
+    from cascadeclassifier_tpu_torch.ops import resize
+
+    src = np.random.default_rng(2).integers(0, 256, (97, 131)).astype(np.uint8)
+    for dw, dh in ((131, 97), (92, 69), (200, 150), (24, 24)):
+        np.testing.assert_array_equal(resize.resize_linear_exact_np(src, dw, dh),
+                                      jresize.resize_linear_exact_np(src, dw, dh))
+
+
+def test_xml_writer_copy_matches_original(tmp_path):
+    m = xml_io.read_cascade_xml(VENDORED)
+    jm = jxml_io.read_cascade_xml(VENDORED)
+    for name, ours, theirs in (
+        ("cascade", lambda p: xml_io.write_cascade_xml(m, p),
+         lambda p: jxml_io.write_cascade_xml(jm, p)),
+        ("params", lambda p: xml_io.write_params_xml(m, p), lambda p: jxml_io.write_params_xml(jm, p)),
+        ("stage3", lambda p: xml_io.write_stage_xml(m.stages[3], False, p, "stage3"),
+         lambda p: jxml_io.write_stage_xml(jm.stages[3], False, p, "stage3")),
+        ("legacy", lambda p: xml_io.write_legacy_haar_xml(m, p),
+         lambda p: jxml_io.write_legacy_haar_xml(jm, p)),
+    ):
+        ours(str(tmp_path / f"{name}_a.xml"))
+        theirs(str(tmp_path / f"{name}_b.xml"))
+        assert (tmp_path / f"{name}_a.xml").read_bytes() == (tmp_path / f"{name}_b.xml").read_bytes()
+    _assert_same(xml_io.read_stage_xml(str(tmp_path / "stage3_a.xml"), 0), m.stages[3])

@@ -167,16 +167,16 @@ def test_deep_slice_matches_jax_xla_engine(name, engines):
 def test_deep_tree_parity_with_opencv_oracle(oracle_bin, tmp_path):
     """tests/test_detector.py::test_deep_tree_parity through the port: two
     trees of depth 2 and 1 over three Haar features, written as XML by the
-    JAX package, through both port engines against the oracle."""
+    port's writer, through both port engines against the oracle."""
     import cv2
 
-    from cascadeclassifier_tpu.models.model import (
+    from cascadeclassifier_tpu_torch.models.model import (
         CascadeModel,
         HaarFeature,
         Stage,
         WeakTree,
     )
-    from cascadeclassifier_tpu.models.xml_io import write_cascade_xml
+    from cascadeclassifier_tpu_torch.models.xml_io import write_cascade_xml
 
     from .utils_synth import face_blob_image
 

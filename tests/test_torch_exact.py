@@ -157,17 +157,17 @@ def test_exact_slice_matches_jax_xla_engine():
 
 @pytest.fixture(scope="module")
 def knife(tmp_path_factory):
-    """The knife-edge cascade (built on the JAX package's reading of the
-    frontal face) written as XML by the JAX package's writer and read back
-    by both packages, on a face-blob frame at sf 1.2, with the JAX xla
+    """The knife-edge cascade (built on the port's reading of the frontal
+    face) written as XML by the port's writer and read back by both
+    packages, on a face-blob frame at sf 1.2, with the JAX xla
     engine's raw rects in both modes."""
-    from cascadeclassifier_tpu.models.xml_io import write_cascade_xml
+    from cascadeclassifier_tpu_torch.models.xml_io import write_cascade_xml
 
     from .utils_synth import face_blob_image
 
     pytest.importorskip("cv2")
     xml = str(tmp_path_factory.mktemp("knife") / "knife.xml")
-    write_cascade_xml(knife_edge_model(jread_cascade_xml(HAAR_ALT)), xml)
+    write_cascade_xml(knife_edge_model(read_cascade_xml(HAAR_ALT)), xml)
     img = face_blob_image(240, 180, n=6, seed=3)
     jm = jread_cascade_xml(xml)
     jax_rects = {exact: _sorted(TPUDetector(jm, exact=exact, engine="xla")

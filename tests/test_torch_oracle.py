@@ -15,9 +15,6 @@ cv2 = pytest.importorskip("cv2")
 
 import numpy as np  # noqa: E402
 
-from cascadeclassifier_tpu.models.xml_io import (  # noqa: E402
-    read_cascade_xml as jread_cascade_xml,
-)
 from cascadeclassifier_tpu_torch.detect.detector import TorchDetector  # noqa: E402
 from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml  # noqa: E402
 from cascadeclassifier_tpu_torch.utils.synth import synth_frame  # noqa: E402
@@ -50,11 +47,11 @@ def _oracle(oracle_bin, xml, img, tmp_path, sf, mn, min_size=None):
 
 def _truncated_xml(tmp_path, n_stages=None, pass_all=False):
     """The cascade cut to its first n stages (or stage 0 made to pass
-    every window), written with the JAX package's XML writer so that the
-    oracle and the port read the same file."""
-    from cascadeclassifier_tpu.models.xml_io import write_cascade_xml
+    every window), written with the port's XML writer so that the oracle
+    and the port read the same file."""
+    from cascadeclassifier_tpu_torch.models.xml_io import write_cascade_xml
 
-    m = jread_cascade_xml(HAAR_ALT)
+    m = read_cascade_xml(HAAR_ALT)
     stages = list(m.stages[:n_stages])
     if pass_all:
         stages = [dataclasses.replace(m.stages[0], threshold=-1e6)]
