@@ -47,6 +47,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # px, px element bytes, sum, sq, band sums and carry, h, w, band rows,
     # stream
@@ -76,6 +77,10 @@ _SIGNATURES = {
                   _P, _P, _P, _I, _I, _P],
     # vs, ws, rs, kept, n, b, levels, total_w, total_r, q, thr, stream
     "cct_split_scan": [_P, _P, _P, _P, _I, _I, _I, _D, _D, _P, _P, _P],
+    # vs, its strides (samples, features), order, its strides, wm, rm, mask,
+    # n, b, levels, total_w, total_r, q, thr, stream
+    "cct_split_scan_gather": [_P, _L, _L, _P, _L, _L, _P, _P, _P,
+                              _I, _I, _I, _D, _D, _P, _P, _P],
 }
 
 _lib = None
@@ -179,14 +184,15 @@ def use_ref(t, impl: str) -> bool:
     return False
 
 
-def require(t, dtype, ndim: int, name: str, device):
+def require(t, dtype, ndim: int, name: str, device, contiguous: bool = True):
     """Validate a tensor handed to a kernel: device, dtype (one, or a
-    tuple of those the kernel takes), rank, contiguity."""
+    tuple of those the kernel takes), rank, contiguity (unless the kernel
+    takes the strides)."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim}-D, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from cascadeclassifier_tpu_torch.models.model import BOOST_GAB, Stage, WeakTree
-from cascadeclassifier_tpu_torch.train.split import split_scan, tree_sum
+from cascadeclassifier_tpu_torch.train.split import gather_inputs, split_scan_gather, tree_sum
 
 FLT_EPSILON = np.float32(1.1920929e-07)
 CV_THRESHOLD_EPS = 1e-5
@@ -60,10 +60,11 @@ class FeatureCache:
     sort machinery, at block granularity and with the JAX package's byte
     counts: a value block is blk·n·4 bytes, an index block blk·n·17.
     Blocks past the value budget recompute their values on every access;
-    blocks past the index budget re-sort on every access and take the
-    generic split path.
+    blocks past the index budget re-sort on every access.
 
-    Sorted views are sample-major, (N, B), as the split kernel reads them."""
+    Sorted views are (N, B): resident blocks are stored contiguous, a
+    block sorted anew is the transposed view of ``torch.sort``'s (B, N)
+    outputs; the split kernel takes either by its strides."""
 
     def __init__(self, evaluator, val_buf_mb: float | None = None,
                  idx_buf_mb: float | None = None):
@@ -88,7 +89,7 @@ class FeatureCache:
             if b < self.n_val:
                 self.values[b] = evaluator.values_block(b)
             if b < self.n_idx:
-                self.order[b], self.vs[b] = self.sorted_block(b)
+                self.order[b], self.vs[b] = (x.contiguous() for x in self.sorted_block(b))
         self.valid_sorted = None
         self.aux_sorted = None
 
@@ -100,15 +101,17 @@ class FeatureCache:
 
     def sorted_block(self, b):
         """(sort order, sorted values) of block b by a stable sort, both
-        sample-major (N, B) and contiguous; resident blocks keep theirs."""
+        (N, B); resident blocks keep theirs, others are views of the
+        sort's outputs."""
         if self.order[b] is not None:
             return self.order[b], self.vs[b]
         vs, si = torch.sort(self.block_values(b), dim=1, stable=True)
-        return si.t().contiguous(), vs.t().contiguous()
+        return si.t(), vs.t()
 
     def set_stage(self, valid, aux):
         """Per-stage sorted views of validity (bool) and the responses (f32:
-        GAB targets are exactly ±1) for the resident blocks."""
+        GAB targets are exactly ±1) for the resident blocks, which
+        fast_inputs reads."""
         dev = self.ev.device
         vj = torch.as_tensor(valid, device=dev)
         aj = torch.as_tensor(np.asarray(aux, np.float32), device=dev)
@@ -124,10 +127,12 @@ class FeatureCache:
 
 
 def fast_inputs(cache: FeatureCache, b: int, w_dev, wthr: float):
-    """Split inputs of a resident block at a tree root, where the subsample
-    is valid & (w >= wthr) (boost.py:527 _block_split_fast): the weights
-    carried into each feature's order, kept = sorted validity & the
-    trim threshold, rs = ws · the sorted ±1 targets."""
+    """split_scan's inputs of a resident block at a tree root, where the
+    subsample is valid & (w >= wthr) (boost.py:527 _block_split_fast): the
+    weights carried into each feature's order, kept = sorted validity &
+    the trim threshold, rs = ws · the sorted ±1 targets (after
+    cache.set_stage). They equal generic_inputs' there, and the gathered
+    form split_scan_gather computes the same split from the sort order."""
     ws_raw = w_dev[cache.order[b]]
     kept = cache.valid_sorted[b] & (ws_raw >= wthr)
     ws = torch.where(kept, ws_raw, 0.0)
@@ -135,12 +140,12 @@ def fast_inputs(cache: FeatureCache, b: int, w_dev, wthr: float):
 
 
 def generic_inputs(cache: FeatureCache, b: int, w_dev, resp_dev, mask_dev):
-    """Split inputs of any block under any mask (boost.py:129
-    _ordered_split_block): values sorted now, masked weights and
-    weight·responses gathered into the sort order."""
+    """split_scan's inputs of any block under any mask (boost.py:129
+    _ordered_split_block): the sorted values, contiguous (N, B), and the
+    masked weights and weight·responses gathered into the sort order."""
     order, vs = cache.sorted_block(b)
     wm = torch.where(mask_dev, w_dev, 0.0)
-    return vs, wm[order], (wm * resp_dev)[order], mask_dev[order]
+    return (vs.contiguous(), *gather_inputs(order, wm, wm * resp_dev, mask_dev))
 
 
 def best_of_block(q):
@@ -166,27 +171,27 @@ class StageTrainer:
 
     # -- weak-tree construction --------------------------------------------
 
-    def _find_best_split(self, cache, w, resp, mask, wthr=None):
+    def _find_best_split(self, cache, w, resp, mask):
         """Global best split across every feature → (var_idx, thr) or None.
 
-        wthr: at a tree root the subsample is valid & (w >= wthr) (mask is
-        exactly that) and the resident blocks take the fast path; other blocks, and any other
-        mask, take the generic path. The totals are summed once, in the
-        original sample order (f64 summation order is part of the
-        arithmetic being replicated)."""
+        Every block, resident or sorted anew, goes to the gathered split
+        kernel with its sort order and the per-sample tables (at a tree
+        root mask is valid & (w >= the trim threshold), where the JAX
+        package's fast path gives the same inputs). The totals are summed
+        once, in the original sample order (f64 summation order is part of
+        the arithmetic being replicated)."""
         dev = self.ev.device
         w_dev = torch.as_tensor(w, dtype=torch.float64, device=dev)
         resp_dev = torch.as_tensor(resp, dtype=torch.float64, device=dev)
         mask_dev = torch.as_tensor(mask, device=dev)
         wm = np.where(mask, w, 0.0)
         total_w, total_r = tree_sum(wm), tree_sum(wm * resp)
+        wm_dev = torch.where(mask_dev, w_dev, 0.0)
+        rm_dev = wm_dev * resp_dev
         qs, ids, thrs = [], [], []
         for b in range(cache.num_blocks):
-            if wthr is not None and cache.vs[b] is not None:
-                inputs = fast_inputs(cache, b, w_dev, wthr)
-            else:
-                inputs = generic_inputs(cache, b, w_dev, resp_dev, mask_dev)
-            q, thr = split_scan(*inputs, total_w, total_r)
+            order, vs = cache.sorted_block(b)
+            q, thr = split_scan_gather(vs, order, wm_dev, rm_dev, mask_dev, total_w, total_r)
             qm, i = best_of_block(q)
             qs.append(qm)
             ids.append(i)
@@ -216,13 +221,13 @@ class StageTrainer:
         wm = np.where(node_mask, w, 0.0)
         return np.float32(tree_sum(wm * resp) / tree_sum(wm))
 
-    def _train_tree(self, cache, w, resp, mask, wthr=None):
+    def _train_tree(self, cache, w, resp, mask):
         """Grow one stump → (WeakTree, per-sample predictions), or
         (None, None) when the root cannot split."""
         p = self.params
         if int(mask.sum()) <= p.min_sample_count:
             return None, None
-        split = self._find_best_split(cache, w, resp, mask, wthr)
+        split = self._find_best_split(cache, w, resp, mask)
         if split is None:
             return None, None
         var_idx, thr = split
@@ -263,8 +268,6 @@ class StageTrainer:
         w = np.where(valid, 1.0 / n_real, 0.0)
         mask = valid.copy()
         resp = orig.astype(np.float64)
-        cache.set_stage(valid, resp)
-        wthr = -np.inf  # trim threshold: the first subsample is all of valid
 
         trees = []
         stage_sums = np.zeros(n, np.float64)
@@ -278,7 +281,7 @@ class StageTrainer:
             print("+----+---------+---------+")
 
         while True:
-            tree, preds = self._train_tree(cache, w, resp, mask, wthr)
+            tree, preds = self._train_tree(cache, w, resp, mask)
             if tree is None:
                 break
             # update_weights, GENTLE (boost.cpp:267-407)
@@ -294,7 +297,6 @@ class StageTrainer:
                 i = int(np.searchsorted(csum[1:], 1.0 - p.weight_trim_rate))
                 thr_w = ws[i] if i < n_real else np.inf
                 mask = valid & (w >= thr_w)
-                wthr = thr_w
             trees.append(tree)
             stage_sums = stage_sums + preds
 

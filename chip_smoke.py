@@ -8,7 +8,7 @@ TorchDetector on cuda:0, on 1920x1080 synthetic frames at scaleFactor
 .xml, 22 upright stages, engine "fused") on the plain vertical stack
 (pack_band=False):
 
-  (a) build     compile the six CUDA kernels from csrc/, one nvcc per
+  (a) build     compile the CUDA kernels from csrc/ (nine sources), one nvcc per
                 source, all started together (seconds)
   (b) integral  kernel integral vs its plain twin on frame 0's canvas, as
                 uint8 (the fused engine's input) and as int32 (the same
@@ -119,15 +119,18 @@ budgets):
                 a grey card, jittered) in a .vec and 20 clutter frames of
                 1920x1080 with near-miss decoys as PGM, all numpy. Check 1:
                 stage 0's real blocks (1000 positives + 2000 negatives,
-                5 blocks) at two boosting iterations, the split inputs of
-                the fast and the generic path equal, kernel split_scan on
-                both bit for bit equal to its plain version on the CPU.
-                Check 2: the first 3 stages of the CLI's 20-stage run (its
-                leaf false-alarm target) at 1000 + 2000 samples on the card
-                (the budgets keep 2 value and 0 index blocks: every block
-                takes the generic path), each stage's first mining
-                superbatch's accept masks equal to the CPU's, per-stage
-                times and the phase totals; split_scan launched;
+                5 blocks) at two boosting iterations: split_scan_gather on
+                the resident (N, B) sort outputs and on a fresh sort's
+                (B, N) outputs, and the array form split_scan on the fast
+                and the generic callers' inputs (equal), all bit for bit
+                equal to the plain version on the CPU. Check 2: the first
+                3 stages of the CLI's 20-stage run (its leaf false-alarm
+                target) at 1000 + 2000 samples on the card (the budgets
+                keep 2 value and 0 index blocks: every block is sorted
+                anew), each stage's first mining superbatch's accept masks
+                equal to the CPU's, per-stage times, the phase totals and
+                train_stage s a tree; split_scan_gather launched, the
+                array form split_scan not at all;
                 params.xml, stage0-2.xml and cascade.xml written and a new
                 trainer resumes from them. Check 3: stage 0 at 200
                 + 400 samples on the card and on the CPU, stage0.xml
@@ -143,7 +146,10 @@ least time the card could take (bytes over 3.35 TB/s or operations over
 67 TFLOP/s, the H100 SXM's published rates), and one PyTorch call that
 computes the same function where one exists (for the integral, which has
 none, the int32 input's time and the chained torch.cumsum composite's
-beside it); the new policies' operations count the nodes each window
+beside it; for split_scan_gather, its time on a resident block and, on the
+same block, the trainer's path before and after the gathered form: the
+transposes, the gathers and the array form, against the tables and the
+gathered form); the new policies' operations count the nodes each window
 visits on its path (the twin's path counts, dense.window_node_visits);
 then each path traced with
 torch.profiler over 4 frames (device time, idle share, launches, host
@@ -314,6 +320,7 @@ def main():
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
     errs, launches, timed, work = {}, {}, {}, {}
+    timed_extra = {}  # kernel name -> {key: fn}: further times beside the kernel's
 
     def integral_err(px_any, label: str):
         """integral on px_any as uint8 and as int32 (the same values) vs
@@ -796,7 +803,7 @@ def main():
 
     # ------------------------------------------------------------------
     # (s) training
-    training_phase(dev, timed, work, errs, launches)
+    training_phase(dev, timed, work, errs, launches, timed_extra)
 
     meta = {
         "integral": ("cascadeclassifier_tpu_torch/csrc/integral.cu",
@@ -834,6 +841,9 @@ def main():
         "split_scan": ("cascadeclassifier_tpu_torch/csrc/split_scan.cu",
                        "cascadeclassifier_tpu/train/boost.py:74 (XLA _ordered_split_sorted, "
                        "not Pallas)"),
+        "split_scan_gather": ("cascadeclassifier_tpu_torch/csrc/split_scan.cu",
+                              "cascadeclassifier_tpu/train/boost.py:129 (XLA "
+                              "_ordered_split_block after its sort, not Pallas)"),
     })
     kernels = []
     for name, (fk, fr, flib, plain_reps) in timed.items():
@@ -842,6 +852,7 @@ def main():
         library_ms = cuda_ms(flib, 20) if flib is not None else None
         bound_ms, bound_by = work[name]
         extra = integral_extra if name == "integral" else {}
+        extra = {**extra, **{k: cuda_ms(f, 20) for k, f in timed_extra.get(name, {}).items()}}
         n_launch = launches[name]
         if isinstance(n_launch, tuple):  # (launches, frames) of a newer path
             extra = {"launches_per_frame": n_launch[0] / n_launch[1]}
@@ -893,7 +904,7 @@ def split_library(vs, ws, rs, kept, total_w, total_r):
     return q, (vs.gather(0, best[None]) + nxt.gather(0, best[None]))[0] * 0.5
 
 
-def training_phase(dev, timed, work, errs, launches):
+def training_phase(dev, timed, work, errs, launches, timed_extra):
     """(s): the trainer on the card at 24x24 Haar BASIC, GAB stumps, the
     CLI's budgets; see the module docstring."""
     import shutil
@@ -904,7 +915,7 @@ def training_phase(dev, timed, work, errs, launches):
     from cascadeclassifier_tpu_torch.detect.detector import TorchDetector, positions_to_rects
     from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml, write_cascade_xml
     from cascadeclassifier_tpu_torch.train import boost
-    from cascadeclassifier_tpu_torch.train.split import split_scan, split_scan_ref, tree_sum
+    from cascadeclassifier_tpu_torch.train.split import split_scan, split_scan_gather, tree_sum
     from cascadeclassifier_tpu_torch.train.trainer import CascadeTrainer
     from cascadeclassifier_tpu_torch.utils import train_data
     from cascadeclassifier_tpu_torch.utils.profiling import reset_timings, timings
@@ -939,19 +950,26 @@ def training_phase(dev, timed, work, errs, launches):
     calls = []
     find = st._find_best_split
 
-    def capture(cache, w, resp, mask, wthr=None):
-        calls.append((cache, w.copy(), resp.copy(), mask.copy(), wthr))
-        return find(cache, w, resp, mask, wthr)
+    def capture(cache, w, resp, mask):
+        calls.append((cache, w.copy(), resp.copy(), mask.copy()))
+        return find(cache, w, resp, mask)
 
     st._find_best_split = capture
     st.train(labels, valid=valid, verbose=False)
     check(len(calls) == 2, f"stage 0 took {len(calls)} split searches, expected 2")
-    n_blocks, worst = 0, 0.0
+    n_blocks, worst = 0, {"split_scan": 0.0, "split_scan_gather": 0.0}
     full_block = None
-    for it, (cache, w, resp, mask, wthr) in enumerate(calls):
+    for it, (cache, w, resp, mask) in enumerate(calls):
+        cache.set_stage(valid, resp)  # the sorted views fast_inputs reads
+        # a tree root's mask is valid & (w >= the trim threshold): the least
+        # masked weight is a threshold that gives the same mask
+        wthr = float(w[mask].min())
+        check(np.array_equal(valid & (w >= wthr), mask), "the mask is not a root's")
         w_dev = torch.as_tensor(w, device=dev)
         r_dev = torch.as_tensor(resp, device=dev)
         m_dev = torch.as_tensor(mask, device=dev)
+        wm_dev = torch.where(m_dev, w_dev, 0.0)
+        rm_dev = wm_dev * r_dev
         wm = np.where(mask, w, 0.0)
         tw, trr = tree_sum(wm), tree_sum(wm * resp)
         for b in range(cache.num_blocks):
@@ -959,33 +977,69 @@ def training_phase(dev, timed, work, errs, launches):
             gen = boost.generic_inputs(cache, b, w_dev, r_dev, m_dev)
             check(all(torch.equal(x, y) for x, y in zip(fast, gen)),
                   f"split inputs of block {b}, iteration {it}: fast and generic paths differ")
-            q_f, thr_f = split_scan(*fast, tw, trr)
-            q_g, thr_g = split_scan(*gen, tw, trr)
-            q_c, thr_c = split_scan_ref(*(x.cpu() for x in fast), tw, trr)
-            for q, thr in ((q_f, thr_f), (q_g, thr_g)):
-                ok = torch.equal(q.cpu(), q_c) and torch.equal(thr.cpu(), thr_c)
-                check(ok, f"split_scan != its plain version on the CPU: block {b}, "
-                          f"iteration {it}")
-            fin = torch.isfinite(q_c)
-            worst = max(worst, float((q_f.cpu()[fin] - q_c[fin]).abs().max()),
-                        float((thr_f.cpu() - thr_c).abs().max()))
+            vs_bn, si_bn = torch.sort(cache.block_values(b), dim=1, stable=True)
+            tables = (wm_dev, rm_dev, m_dev, tw, trr)
+            gathered = {"resident": (cache.vs[b], cache.order[b]),  # contiguous (N, B)
+                        "fresh": (vs_bn.t(), si_bn.t())}  # views of the sort's (B, N)
+            check(all(torch.equal(x, y) for x, y in zip(gathered["resident"],
+                                                         gathered["fresh"])),
+                  f"block {b}: the resident sort differs from a fresh one")
+            q_c, thr_c = split_scan_gather(*(x.cpu() for x in gathered["fresh"]),
+                                           *(x.cpu() for x in tables[:3]), tw, trr)
+            runs = {"split_scan": [split_scan(*fast, tw, trr), split_scan(*gen, tw, trr)],
+                    "split_scan_gather": [split_scan_gather(*g, *tables)
+                                          for g in gathered.values()]}
+            for name, outs in runs.items():
+                for q, thr in outs:
+                    ok = torch.equal(q.cpu(), q_c) and torch.equal(thr.cpu(), thr_c)
+                    check(ok, f"{name} != the plain version on the CPU: block {b}, "
+                              f"iteration {it}")
+                    fin = torch.isfinite(q_c)
+                    worst[name] = max(worst[name],
+                                      float((q.cpu()[fin] - q_c[fin]).abs().max()),
+                                      float((thr.cpu() - thr_c).abs().max()))
             n_blocks += 1
             if full_block is None and fast[0].shape[1] == ev.block_size:
-                full_block = (fast, tw, trr)
-    errs["split_scan"] = worst
+                full_block = (fast, gathered["fresh"], gathered["resident"], tables,
+                              (w_dev, r_dev, m_dev))
+    errs.update(worst)
     nb, nn = full_block[0][0].shape[1], full_block[0][0].shape[0]
-    print(f"(s) check 1: split_scan bit for bit equal to its plain version on the CPU on "
-          f"{n_blocks} blocks ({cache.num_blocks} blocks x 2 boosting iterations of stage 0, "
-          f"{nn} samples x up to {nb} features), through both callers (fast and generic "
-          f"inputs equal); {time.perf_counter() - t1:.1f} s", flush=True)
-    (vs, ws, rs, kept), tw, trr = full_block
+    print(f"(s) check 1: on {n_blocks} blocks ({cache.num_blocks} blocks x 2 boosting "
+          f"iterations of stage 0, {nn} samples x up to {nb} features) split_scan_gather "
+          f"(resident (N, B) and fresh (B, N) sort outputs) and split_scan (the fast and "
+          f"the generic callers' inputs, equal) bit for bit equal to the plain version on "
+          f"the CPU; {time.perf_counter() - t1:.1f} s", flush=True)
+    (vs, ws, rs, kept), (vs_f, order_f), (vs_r, order_r), tables, (w_dev, r_dev, m_dev) = \
+        full_block
+    wm_dev, rm_dev, m_dev, tw, trr = tables
     timed["split_scan"] = (lambda: split_scan(vs, ws, rs, kept, tw, trr),
                            lambda: split_scan(vs, ws, rs, kept, tw, trr, impl="ref"),
                            lambda: split_library(vs, ws, rs, kept, tw, trr), 2)
+    timed["split_scan_gather"] = (
+        lambda: split_scan_gather(vs_f, order_f, *tables),
+        lambda: split_scan_gather(vs_f, order_f, *tables, impl="ref"),
+        lambda: split_library(vs_f, wm_dev[order_f], rm_dev[order_f], m_dev[order_f], tw, trr),
+        2)
+    sorted_bn = (vs_f.t(), order_f.t())  # torch.sort's own (B, N) outputs
+
+    def pr9_path():  # the transposes, generic_inputs' gathers and the array form
+        vs_t, si_t = (x.t().contiguous() for x in sorted_bn)
+        wm = torch.where(m_dev, w_dev, 0.0)
+        return split_scan(vs_t, wm[si_t], (wm * r_dev)[si_t], m_dev[si_t], tw, trr)
+
+    def new_path():  # the tables and the gathered form on the sort's outputs
+        wm = torch.where(m_dev, w_dev, 0.0)
+        return split_scan_gather(sorted_bn[0].t(), sorted_bn[1].t(), wm, wm * r_dev, m_dev,
+                                 tw, trr)
+
+    timed_extra["split_scan_gather"] = {
+        "resident_ms": lambda: split_scan_gather(vs_r, order_r, *tables),
+        "pr9_path_ms": pr9_path, "new_path_ms": new_path}
     # each input read once, each output written once; the f64 operations
     # (two scans, the quality, the compares) are far below the bytes' time
     work["split_scan"] = bound(nn * nb * (4 + 8 + 8 + 1) + nb * (8 + 4), 0)
-    del calls, cache, st, full_block
+    work["split_scan_gather"] = bound(nn * nb * (4 + 8) + nn * (8 + 8 + 1) + nb * (8 + 4), 0)
+    del calls, cache, st
     torch.cuda.empty_cache()
 
     # -- check 2: three stages at full width, the CLI's budgets
@@ -1042,7 +1096,12 @@ def training_phase(dev, timed, work, errs, launches):
     torch.cuda.synchronize()
     counts = dict(_build.LAUNCHES)
     launches["split_scan"] = counts.get("split_scan", 0)
-    check(launches["split_scan"] > 0, "kernel split_scan was not launched on the main path")
+    launches["split_scan_gather"] = counts.get("split_scan_gather", 0)
+    check(launches["split_scan_gather"] > 0,
+          "kernel split_scan_gather was not launched on the main path")
+    check(launches["split_scan"] == 0,
+          f"the trainer launched the array form split_scan {launches['split_scan']} times: it "
+          f"builds (N, B) inputs in torch")
     check(len(trainer.stages) == 3, f"the trainer trained {len(trainer.stages)} stages, not 3")
     check(all(m == 0 for m in mismatches), f"accept masks differ from the CPU's: {mismatches}")
     files = sorted(os.listdir(full))
@@ -1064,8 +1123,10 @@ def training_phase(dev, timed, work, errs, launches):
     n_trees = sum(len(s.trees) for s in trainer.stages)
     print(f"(s) check 2: params.xml, stage0-2.xml and cascade.xml written, a new trainer "
           f"resumes the 3 stages from them", flush=True)
-    print(f"(s) check 2: {n_trees} trees, split_scan launched {launches['split_scan']} times "
-          f"({launches['split_scan'] / n_trees:.1f} a tree), {time.perf_counter() - t2:.1f} s",
+    print(f"(s) check 2: {n_trees} trees, split_scan_gather launched "
+          f"{launches['split_scan_gather']} times ({launches['split_scan_gather'] / n_trees:.1f}"
+          f" a tree), split_scan {launches['split_scan']}; train_stage "
+          f"{sum(tm['train_stage']) / n_trees:.4f} s a tree; {time.perf_counter() - t2:.1f} s",
           flush=True)
 
     # -- check 3: stage 0 on the card and on the CPU, byte for byte

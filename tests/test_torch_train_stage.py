@@ -110,19 +110,21 @@ def test_split_calls_go_through_the_wrapper_once_per_block(monkeypatch):
     ev = HaarTrainEvaluator(haar_catalog(12, 12, "BASIC"), block_size=2048, device="cpu")
     ev.set_samples(samples)
     calls = []
-    real = boost.split_scan
+    real = boost.split_scan_gather
 
     def spy(*args):
-        calls.append(args[0].shape)
+        calls.append((args[0].shape, args[2].shape))
         return real(*args)
 
-    monkeypatch.setattr(boost, "split_scan", spy)
+    monkeypatch.setattr(boost, "split_scan_gather", spy)
     stage, _ = boost.StageTrainer(ev, boost.BoostParams(weak_count=3)).train(
         labels, valid=valid, verbose=False)
     nb = ev.num_blocks()
     assert len(calls) == nb * len(stage.trees)
-    assert all(c[0] == len(samples) for c in calls)  # sample-major blocks
-    assert _build.LAUNCHES["split_scan"] == 0  # the CPU takes the plain version
+    # (N, B) blocks and per-sample tables: no (N, B) f64 input is built
+    assert all(c[0][0] == len(samples) and c[1] == (len(samples),) for c in calls)
+    assert _build.LAUNCHES["split_scan_gather"] == 0  # the CPU takes the plain version
+    assert _build.LAUNCHES["split_scan"] == 0
 
 
 @pytest.mark.parametrize("what", ["DAB", "RAB", "LB", "depth2", "mesh", "LBP", "HOG"])
