@@ -30,7 +30,7 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("integral.cu", "front.cu", "patchify.cu", "tilted.cu", "stage.cu",
-           "packed_front.cu", "tile_node.cu", "tile_lbp.cu", "split_scan.cu")
+           "packed_front.cu", "tile_node.cu", "tile_lbp.cu", "split_scan.cu", "cat_split.cu")
 # included by front.cu, stage.cu, packed_front.cu, tile_node.cu and tile_lbp.cu
 HEADERS = ("cascade_tile.cuh",)
 NVCC_FLAGS = (
@@ -77,10 +77,12 @@ _SIGNATURES = {
                   _P, _P, _P, _I, _I, _P],
     # vs, ws, rs, kept, n, b, levels, total_w, total_r, q, thr, stream
     "cct_split_scan": [_P, _P, _P, _P, _I, _I, _I, _D, _D, _P, _P, _P],
-    # vs, its strides (samples, features), order, its strides, wm, rm, mask,
-    # n, b, levels, total_w, total_r, q, thr, stream
+    # vs, its strides (samples, features), order, its strides, the two
+    # tables, mask, n, b, levels, quality, the tables' totals, q, thr, stream
     "cct_split_scan_gather": [_P, _L, _L, _P, _L, _L, _P, _P, _P,
-                              _I, _I, _I, _D, _D, _P, _P, _P],
+                              _I, _I, _I, _I, _D, _D, _P, _P, _P],
+    # codes, the two tables, n, b, policy, q, subset, stream
+    "cct_cat_split": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 _lib = None

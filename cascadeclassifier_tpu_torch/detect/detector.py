@@ -297,6 +297,10 @@ class TorchDetector:
         torch.backends.cudnn.allow_tf32 = False
         self.model = model
         self.exact = bool(exact)
+        # what a replica on another device is built with (devices= below)
+        self._options = dict(exact=exact, engine=engine, front_trees=front_trees, impl=impl,
+                             pack_band=pack_band, packed_front=packed_front)
+        self._replicas = {}
         self.packed = PackedCascade.from_model(model)
         if engine == "auto":
             upright_stumps = self.packed.kind == "stump" and not self.packed.has_tilted
@@ -355,14 +359,29 @@ class TorchDetector:
             )
         return self.group(plan, idx, min_neighbors)
 
+    def replica(self, device) -> "TorchDetector":
+        """This detector on device: itself, or a copy built once with the
+        same cascade and options, holding its own cascade tables there."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        if device not in self._replicas:
+            self._replicas[device] = TorchDetector(self.model, device=device, **self._options)
+        return self._replicas[device]
+
     def detect_multi_scale_batch(self, frames, scale_factor: float = 1.1,
                                  min_neighbors: int = 3, min_size=None,
-                                 max_size=None, max_det: int = 1 << 14) -> list:
+                                 max_size=None, max_det: int = 1 << 14, devices=None) -> list:
         """detect_multi_scale over a sequence of frames, one at a time;
         max_det is raised to at least 1 << 16, as the JAX package's
-        frame-at-a-time batch path raises it."""
+        frame-at-a-time batch path raises it. devices: an optional list of
+        torch devices; frame i goes to devices[i % len(devices)], each
+        device with its own copy of the cascade tables (data-parallel
+        detection, the same per-frame results)."""
+        devices = [self.device] if not devices else list(devices)
         return [
-            self.detect_multi_scale(f, scale_factor, min_neighbors, min_size, max_size,
-                                    max_det=max(max_det, 1 << 16))
-            for f in frames
+            self.replica(devices[i % len(devices)]).detect_multi_scale(
+                f, scale_factor, min_neighbors, min_size, max_size,
+                max_det=max(max_det, 1 << 16))
+            for i, f in enumerate(frames)
         ]

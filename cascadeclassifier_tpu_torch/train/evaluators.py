@@ -1,4 +1,4 @@
-"""Training-side Haar evaluation: all samples × a block of features.
+"""Training-side Haar and LBP evaluation: all samples × a block of features.
 
 Counterpart of ``cascadeclassifier_tpu/train/evaluators.py::
 HaarTrainEvaluator``. Each rectangle sum is a ±1 4-corner functional of
@@ -9,7 +9,11 @@ factor is 0: a division, as CvHaarEvaluator computes it, not the
 detector's multiply by its inverse). At 24×24 every partial sum is an
 integer below 2^24, so the product is exact in any order; TF32 stays off.
 
-LBP and HOG training evaluators are not ported: make_evaluator raises.
+LBP codes take the 9 cell sums of each feature the same way, a ±1 corner
+matrix (9·B, P) times the f32 integral rows (exact: integers below 2^24),
+then the 8 compares of ``lbp_code_grid``.
+
+The HOG training evaluator is not ported: make_evaluator raises.
 """
 
 from __future__ import annotations
@@ -17,8 +21,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cascadeclassifier_tpu_torch.models.model import FEATURE_HAAR
-from cascadeclassifier_tpu_torch.ops.features import HAAR_BASIC, HaarCatalog, haar_catalog
+from cascadeclassifier_tpu_torch.models.model import FEATURE_HAAR, FEATURE_LBP
+from cascadeclassifier_tpu_torch.ops.features import (
+    HAAR_BASIC,
+    HaarCatalog,
+    LBPCatalog,
+    haar_catalog,
+    lbp_catalog,
+    lbp_code_grid,
+)
 from cascadeclassifier_tpu_torch.ops.integral import (
     integral_image,
     integral_sq,
@@ -42,12 +53,13 @@ def f32_matmul(a, b):
 
 
 def corner_matrix(offsets, weights, p: int):
-    """(B, 3, 4) corner offsets and (B, 3) weights (tensors) → (B, P) f32
-    incidence matrix; coinciding corners add (small integers: exact)."""
-    b = offsets.shape[0]
+    """(B, R, 4) corner offsets and (B, R) weights of R rectangles a row
+    (tensors) → (B, P) f32 incidence matrix; coinciding corners add (small
+    integers: exact)."""
+    b, r = offsets.shape[:2]
     dev = offsets.device
     sign = torch.tensor(_SIGN, dtype=torch.float32, device=dev)
-    rows = torch.arange(b, device=dev).repeat_interleave(12)
+    rows = torch.arange(b, device=dev).repeat_interleave(4 * r)
     cols = offsets.reshape(-1).long()
     vals = (weights[:, :, None] * sign[None, None, :]).reshape(-1)
     m = torch.zeros((b, p), dtype=torch.float32, device=dev)
@@ -72,6 +84,8 @@ class HaarTrainEvaluator:
     """Haar responses of cached sample batches, block by block
     (CvHaarEvaluator, haarfeatures.h:108-122: Σ wᵢ·rectsumᵢ / normfactor,
     0 when normfactor == 0)."""
+
+    maxCatCount = 0  # ordered features
 
     def __init__(self, catalog: HaarCatalog, block_size: int = 32768, device="cuda"):
         self.catalog = catalog
@@ -129,10 +143,70 @@ class HaarTrainEvaluator:
         return self._eval_features(ids)
 
 
+def lbp_rows(x):
+    """(N, h, w) uint8 windows → (N, P) f32 integral rows (the per-sample
+    state of CvLBPEvaluator::setImage)."""
+    s = integral_image(x)
+    return s.reshape(s.shape[0], -1).to(torch.float32)
+
+
+class LBPTrainEvaluator:
+    """LBP codes (0..255) of cached sample batches, block by block
+    (CvLBPEvaluator, lbpfeatures.h:70-83): the 9 cell sums of a block of
+    features are one (9·B, P) × (P, N) product, then 8 compares."""
+
+    maxCatCount = 256  # categorical features
+
+    def __init__(self, catalog: LBPCatalog, block_size: int = 16384, device="cuda"):
+        self.catalog = catalog
+        self.block_size = block_size
+        self.device = torch.device(device)
+        self.win_w, self.win_h = catalog.win_w, catalog.win_h
+        self.p = (catalog.win_w + 1) * (catalog.win_h + 1)
+        self._cell_rects = torch.from_numpy(catalog.cell_rects()).to(self.device)
+        self.num_features = len(catalog)
+        self.n = 0
+
+    def set_samples(self, samples):
+        """samples: (N, h, w) uint8 → caches the integral rows."""
+        x = torch.as_tensor(samples).to(self.device)
+        self.sum_rows = lbp_rows(x)
+        self.n = int(x.shape[0])
+
+    def num_blocks(self):
+        return (self.num_features + self.block_size - 1) // self.block_size
+
+    def block_slice(self, b):
+        lo = b * self.block_size
+        return lo, min(lo + self.block_size, self.num_features)
+
+    def cell_matrix(self, sel):
+        """(9·B, P) cell incidence matrix of the features sel."""
+        cells = self._cell_rects[sel].reshape(-1, 1, 4)
+        return corner_matrix(cells, cells.new_ones(cells.shape[:2], dtype=torch.float32), self.p)
+
+    @staticmethod
+    def codes(m, rows):
+        """Cell matrix m (9·B, P) and integral rows (N, P) → (B, N) int32."""
+        cs = f32_matmul(m, rows.T).view(m.shape[0] // 9, 3, 3, rows.shape[0])
+        return lbp_code_grid([[cs[:, r, c] for c in range(3)] for r in range(3)])
+
+    def values_block(self, b: int):
+        """(B, N) int32 codes of feature block b on the cached samples."""
+        lo, hi = self.block_slice(b)
+        return self.codes(self.cell_matrix(slice(lo, hi)), self.sum_rows)
+
+    def values_for_vars(self, var_ids):
+        """(K, N) int32 codes of an explicit list of feature indices."""
+        ids = torch.as_tensor(np.asarray(var_ids, np.int64), device=self.device)
+        return self.codes(self.cell_matrix(ids), self.sum_rows)
+
+
 def make_evaluator(feature_type, win_w, win_h, haar_mode=HAAR_BASIC, device="cuda"):
     if feature_type == FEATURE_HAAR:
         return HaarTrainEvaluator(haar_catalog(win_w, win_h, haar_mode), device=device)
+    if feature_type == FEATURE_LBP:
+        return LBPTrainEvaluator(lbp_catalog(win_w, win_h), device=device)
     raise NotImplementedError(
-        "the port trains Haar cascades only: the LBP and HOG training evaluators "
-        "are not ported"
+        "the port trains Haar and LBP cascades: the HOG training evaluator is not ported"
     )

@@ -3,14 +3,16 @@
 Counterpart of ``cascadeclassifier_tpu/train/predictor.py::
 CascadePredictor`` for stump cascades: CvCascadeClassifier::predict →
 CvCascadeBoost::predict (cascadeclassifier.cpp:297-306, boost.cpp:461-477)
-with the training evaluator's feature values, ``val <= thr`` stumps,
-leaves summed in f64 and a stage rejecting at ``sum < threshold − 1e-5``.
+with the training evaluator's feature values, ``val <= thr`` stumps (Haar)
+or the subset bit of the code (LBP), leaves summed in f64 and a stage
+rejecting at ``sum < threshold − 1e-5``.
 
 ``predict_batch`` filters positives; ``predict_levels`` is the dense
 miner: for each (image, scale) level it crops the window grid from the
 level (resized on the device from its source for lazy levels), takes
-every window's integrals, the corner product with the used features,
-the division by the norm factor and the stump walk, one fetch per
+every window's integrals and the corner product with the used features
+(Haar: upright plus tilted, then the division by the norm factor; LBP:
+the 9 cell sums, then the 8 compares) and the stump walk, one fetch per
 superbatch. The JAX package's pow2 and ladder padding and its compile
 caches bound XLA compiles; the masks do not depend on them and they are
 not ported. Deep-tree and HOG cascades (its per-window gather path)
@@ -22,22 +24,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cascadeclassifier_tpu_torch.ops.integral import integral_tilted
 from cascadeclassifier_tpu_torch.ops.resize import build_level
-from cascadeclassifier_tpu_torch.train.evaluators import divide_nf, f32_matmul, haar_rows
+from cascadeclassifier_tpu_torch.train.evaluators import divide_nf, f32_matmul, haar_rows, lbp_rows
 from cascadeclassifier_tpu_torch.train.split import scan_cumsum
 from cascadeclassifier_tpu_torch.utils.profiling import timed
 
 CV_THRESHOLD_EPS = 1e-5
 
 
-def stump_walk(vals, ti, tt, tl, tr, bs, be, sthr):
+def stump_walk(vals, ti, tt, tl, tr, ts, bs, be, sthr):
     """All-stump cascade walk (boost.cpp:461-477): vals (K, m) f32 feature
-    values; per tree its value row ti, threshold tt (f32) and leaves tl,
-    tr (f32, summed in f64); stage s owns trees [bs[s], be[s]). Stage sums
-    are differences of one f64 prefix over the tree axis, in the order
-    XLA:CPU adds ``jnp.cumsum`` in the JAX package. → (m,) bool accepts."""
+    values (int32 codes for a categorical cascade); per tree its value row
+    ti, threshold tt (f32) or subset ts (T, 8) int32 (categorical; None
+    otherwise) and leaves tl, tr (f32, summed in f64); stage s owns trees
+    [bs[s], be[s]). A code c goes left when bit c & 31 of word c >> 5 of
+    the subset is set. Stage sums are differences of one f64 prefix over
+    the tree axis, in the order XLA:CPU adds ``jnp.cumsum`` in the JAX
+    package. → (m,) bool accepts."""
     tv = vals[ti]
-    leaf = torch.where(tv <= tt[:, None], tl[:, None], tr[:, None]).to(torch.float64)
+    if ts is None:
+        left = tv <= tt[:, None]
+    else:
+        word = ts.gather(1, (tv >> 5).long())
+        left = ((word >> (tv & 31)) & 1) != 0
+    leaf = torch.where(left, tl[:, None], tr[:, None]).to(torch.float64)
     pref = scan_cumsum(leaf)
     ends = pref[be - 1]
     starts = torch.where((bs > 0)[:, None], pref[(bs - 1).clamp(min=0)], 0.0)
@@ -60,16 +71,20 @@ class CascadePredictor:
     def _used_vars(self):
         return sorted({int(v) for s in self.stages for t in s.trees for v in t.feature_idx})
 
-    def _tables(self, used, device):
+    def _tables(self, used, device, categorical: bool):
         """Per-tree tensors for stump_walk."""
         pos = {v: i for i, v in enumerate(used)}
-        ti, tt, tl, tr, bounds, sthr = [], [], [], [], [0], []
+        ti, tt, tl, tr, ts, bounds, sthr = [], [], [], [], [], [0], []
         for stage in self.stages:
             for tree in stage.trees:
                 if tree.num_nodes != 1:
                     raise NotImplementedError("the port's predictor walks stump cascades only")
                 ti.append(pos[int(tree.feature_idx[0])])
-                tt.append(tree.threshold[0])
+                if categorical:
+                    ts.append(np.asarray(tree.subsets[0], np.int32))
+                    tt.append(0.0)
+                else:
+                    tt.append(tree.threshold[0])
                 tl.append(tree.leaf_values[-int(tree.left[0])] if tree.left[0] <= 0 else 0.0)
                 tr.append(tree.leaf_values[-int(tree.right[0])] if tree.right[0] <= 0 else 0.0)
             bounds.append(len(ti))
@@ -79,6 +94,7 @@ class CascadePredictor:
             return torch.as_tensor(np.asarray(a, dtype), device=device)
 
         return (t(ti, np.int64), t(tt, np.float32), t(tl, np.float32), t(tr, np.float32),
+                t(ts, np.int32) if categorical else None,
                 t(bounds[:-1], np.int64), t(bounds[1:], np.int64), t(sthr, np.float64))
 
     def predict_batch(self, samples) -> np.ndarray:
@@ -91,7 +107,8 @@ class CascadePredictor:
         used = self._used_vars()
         ev.set_samples(samples)
         vals = ev.values_for_vars(used)
-        return stump_walk(vals, *self._tables(used, ev.device)).cpu().numpy()
+        tables = self._tables(used, ev.device, ev.maxCatCount > 0)
+        return stump_walk(vals, *tables).cpu().numpy()
 
     def _source(self, lvl, device):
         key = lvl.src_id
@@ -133,10 +150,24 @@ class CascadePredictor:
         ev = self._make_ev()
         dev = ev.device
         used = self._used_vars()
-        tables = self._tables(used, dev)
-        m_up, m_tilt = ev.corner_matrices(torch.as_tensor(used, device=dev))
-        if m_tilt is not None:
-            raise NotImplementedError("the port's dense miner takes upright Haar cascades only")
+        sel = torch.as_tensor(used, device=dev)
+        if ev.maxCatCount > 0:
+            m_cells = ev.cell_matrix(sel)
+
+            def values(win):
+                return ev.codes(m_cells, lbp_rows(win))
+        else:
+            m_up, m_tilt = ev.corner_matrices(sel)
+
+            def values(win):
+                rows, nf = haar_rows(win)
+                raw = f32_matmul(m_up, rows.T)
+                if m_tilt is not None:  # up + tilted, then the division
+                    t = integral_tilted(win)
+                    raw = raw + f32_matmul(m_tilt, t.reshape(t.shape[0], -1).to(torch.float32).T)
+                return divide_nf(raw, nf)
+
+        tables = self._tables(used, dev, ev.maxCatCount > 0)
         counts = [len(lv[1]) for lv in levels]
         oks = []
         with timed("mine_values"):
@@ -144,9 +175,7 @@ class CascadePredictor:
                     for img, pos, _key in levels if len(pos)]
             wins = torch.cat(wins) if wins else torch.zeros((0, wh, ww), dtype=torch.uint8)
             for c0 in range(0, wins.shape[0], self.CHUNK_WINDOWS):
-                rows, nf = haar_rows(wins[c0:c0 + self.CHUNK_WINDOWS])
-                vals = divide_nf(f32_matmul(m_up, rows.T), nf)
-                oks.append(stump_walk(vals, *tables))
+                oks.append(stump_walk(values(wins[c0:c0 + self.CHUNK_WINDOWS]), *tables))
         with timed("mine_fetch"):
             ok = torch.cat(oks).cpu().numpy() if oks else np.zeros(0, bool)
         out, off = [], 0

@@ -8,8 +8,12 @@ find_split_ord_reg (o_cvboostree.cpp:361-426) — the f64 prefix sums of the
 sorted weights and weight·responses, the next kept value after each
 position, validity (kept, values apart by more than 2·FLT_EPSILON, both
 sides weighted), the quality (lr²·rw + rr²·lw)/(lw·rw), its first maximum
-and the f32 midpoint threshold. A CUDA tensor runs ``csrc/split_scan.cu``;
-a CPU tensor, or ``impl="ref"``, runs the plain version.
+and the f32 midpoint threshold. ``split_scan_class_gather`` is the
+two-class split of DAB and RAB (``_ordered_class_split_sorted``,
+find_split_ord_class in o_cvboostree.cpp): the same scans of the
+masked class-0 and class-1 weights, the misclassification or the Gini
+quality. A CUDA tensor runs ``csrc/split_scan.cu``; a CPU tensor, or
+``impl="ref"``, runs the plain version.
 
 Blocks are (N, B): element (i, f) is feature f's i-th sample in that
 feature's sort order. ``split_scan_gather`` takes the sorted values and
@@ -43,6 +47,8 @@ SCAN_BASE = 16  # XLA:CPU ReduceWindowRewriter base length (jnp.cumsum)
 SUM_WINDOW = 32  # XLA:CPU TreeReductionRewriter window (jnp.sum)
 FLT_EPSILON = np.float32(1.1920929e-07)
 TWO_FLT_EPSILON = float(2 * FLT_EPSILON)  # 2^-22, added in f32
+# the quality policies of the split kernels (split_scan.cu's gathered form, cat_split.cu)
+POLICY_REG, POLICY_MISCLASS, POLICY_GINI = 0, 1, 2
 
 
 def scan_levels(n: int) -> int:
@@ -160,34 +166,95 @@ def next_kept(vs, kept):
     return out
 
 
-def split_scan_ref(vs, ws, rs, kept, total_w: float, total_r: float):
-    """Plain version. vs (N, B) f32 ascending down each column; ws, rs
-    (N, B) f64 masked weights and weight·responses in that order; kept
-    (N, B) bool; total_w, total_r summed in the original sample order →
-    (quality (B,) f64, −inf where no split; threshold (B,) f32)."""
-    n, b = vs.shape
-    lw = scan_cumsum(ws)
-    lr = scan_cumsum(rs)
-    rw = total_w - lw
-    rr = total_r - lr
-    nxt = next_kept(vs, kept)
-    ok = kept & (vs + TWO_FLT_EPSILON < nxt) & torch.isfinite(nxt) & (lw > 0) & (rw > 0)
-    # the numerator's two terms are ≥ 0, so the fma-rounded quality lies
-    # within a few ulps of this one: only positions within 1e-12 of a
-    # column's plain maximum can hold its maximum, and only they take the
-    # (costly) exact evaluation
-    qual0 = lr * lr
-    qual0.mul_(rw).add_((rr * rr).mul_(lw)).div_(lw * rw).masked_fill_(~ok, float("-inf"))
+def _near_max_exact(ok, plain, exact):
+    """The quality at the valid positions: plain (B, N) rounds each product
+    on its own, exact(sel) evaluates the positions sel as the JAX package
+    does (with its fmas). A numerator of terms >= 0 puts the two within a
+    few ulps, so only positions within 1e-12 of a column's plain maximum
+    can hold its maximum, and only they take the (costly) exact
+    evaluation."""
+    qual0 = plain.masked_fill_(~ok, float("-inf"))
     bq0 = qual0.max(dim=0).values
     cand = ok & (qual0 >= bq0 - 1e-12 * bq0.abs())
     qual = torch.full_like(qual0, float("-inf"))
-    qual[cand] = quality(lw[cand], lr[cand], rw[cand], rr[cand], n)
+    qual[cand] = exact(cand)
+    return qual
+
+
+def _first_max_threshold(qual, vs, nxt):
+    """(the first maximum of each column of qual, the f32 midpoint between
+    its position's value and the next kept value)."""
+    n = vs.shape[0]
     bq = qual.max(dim=0).values
     posn = torch.arange(n, device=vs.device)[:, None]
     best = torch.where(qual == bq[None], posn, n).min(dim=0).values.clamp(max=n - 1)
     bv = vs.gather(0, best[None])[0]
     bn = nxt.gather(0, best[None])[0]
     return bq, (bv + bn) * np.float32(0.5)
+
+
+def split_scan_ref(vs, ws, rs, kept, total_w: float, total_r: float):
+    """Plain version. vs (N, B) f32 ascending down each column; ws, rs
+    (N, B) f64 masked weights and weight·responses in that order; kept
+    (N, B) bool; total_w, total_r summed in the original sample order →
+    (quality (B,) f64, −inf where no split; threshold (B,) f32)."""
+    n = vs.shape[0]
+    lw = scan_cumsum(ws)
+    lr = scan_cumsum(rs)
+    rw = total_w - lw
+    rr = total_r - lr
+    nxt = next_kept(vs, kept)
+    ok = kept & (vs + TWO_FLT_EPSILON < nxt) & torch.isfinite(nxt) & (lw > 0) & (rw > 0)
+    plain = lr * lr
+    plain.mul_(rw).add_((rr * rr).mul_(lw)).div_(lw * rw)
+    qual = _near_max_exact(ok, plain, lambda c: quality(lw[c], lr[c], rw[c], rr[c], n))
+    return _first_max_threshold(qual, vs, nxt)
+
+
+def gini(l0, l1, r0, r1, l1_first: bool = False):
+    """The Gini quality ((l0² + l1²)·rw + (r0² + r1²)·lw) / (lw·rw) of a
+    two-class split, as LLVM contracts it in the JAX package:
+    fma(L, rw, fma(r0, r0, r1²)·lw) / (lw·rw), where L is fma(l0, l0, l1²),
+    or fma(l1, l1, l0²) when l1_first (gini_l1_first)."""
+    lw, rw = l0 + l1, r0 + r1
+    left = fma(l1, l1, l0 * l0) if l1_first else fma(l0, l0, l1 * l1)
+    return fma(left, rw, fma(r0, r0, r1 * r1) * lw) / (lw * rw)
+
+
+def gini_l1_first(n: int) -> bool:
+    """Whether LLVM takes l1 first in the Gini quality of the JAX package's
+    ordered two-class split over n samples: when n > 256 and n is not a
+    multiple of 16 (found by holding every contraction against the
+    program on the CPU for n from 9 to 4112; the trainer pads n to a
+    multiple of 256). Below 9 samples the JAX package's two programs
+    (_ordered_class_split_sorted alone and inside _block_split_fast)
+    contract it differently from each other, and no rule is kept."""
+    return n > SCAN_BASE * SCAN_BASE and n % SCAN_BASE != 0
+
+
+def split_scan_class_ref(vs, w0s, w1s, kept, t0: float, t1: float, use_gini: bool):
+    """Plain version of the two-class policy (the JAX package's
+    _ordered_class_split_sorted: DAB with the misclassification
+    criterion, RAB with Gini). vs, kept as in split_scan_ref; w0s, w1s
+    (N, B) f64 the masked weights of the class-0 and the class-1 samples
+    (0 elsewhere) in that order; t0, t1 their totals in the original
+    sample order → (quality (B,) f64, threshold (B,) f32)."""
+    n = vs.shape[0]
+    c0 = scan_cumsum(w0s)
+    c1 = scan_cumsum(w1s)
+    r0 = t0 - c0
+    r1 = t1 - c1
+    nxt = next_kept(vs, kept)
+    ok = kept & (vs + TWO_FLT_EPSILON < nxt) & torch.isfinite(nxt)
+    if use_gini:
+        lw, rw = c0 + c1, r0 + r1
+        ok &= (lw > 0) & (rw > 0)
+        plain = (c0 * c0 + c1 * c1).mul_(rw).add_((r0 * r0 + r1 * r1).mul_(lw)).div_(lw * rw)
+        qual = _near_max_exact(ok, plain, lambda c: gini(c0[c], c1[c], r0[c], r1[c],
+                                                             gini_l1_first(n)))
+    else:
+        qual = torch.maximum(c0 + r1, c1 + r0).masked_fill_(~ok, float("-inf"))
+    return _first_max_threshold(qual, vs, nxt)
 
 
 def split_scan(vs, ws, rs, kept, total_w: float, total_r: float, impl: str = "auto"):
@@ -226,6 +293,29 @@ def split_scan_gather_ref(vs, order, wm, rm, mask, total_w: float, total_r: floa
     return split_scan_ref(vs, *gather_inputs(order, wm, rm, mask), total_w, total_r)
 
 
+def _launch_gather(vs, order, ta, tb, mask, total_a: float, total_b: float, policy: int):
+    dev = vs.device
+    _build.require(vs, torch.float32, 2, "vs", dev, contiguous=False)
+    _build.require(order, torch.int64, 2, "order", dev, contiguous=False)
+    _build.require(ta, torch.float64, 1, "table 0", dev)
+    _build.require(tb, torch.float64, 1, "table 1", dev)
+    _build.require(mask, torch.bool, 1, "mask", dev)
+    n, b = vs.shape
+    if order.shape != vs.shape or any(t.shape != (n,) for t in (ta, tb, mask)) or n == 0:
+        raise ValueError("split_scan_gather: shapes "
+                         f"{[tuple(t.shape) for t in (vs, order, ta, tb, mask)]}")
+    q = torch.empty(b, dtype=torch.float64, device=dev)
+    thr = torch.empty(b, dtype=torch.float32, device=dev)
+    code = _build.lib().cct_split_scan_gather(
+        vs.data_ptr(), vs.stride(0), vs.stride(1), order.data_ptr(), order.stride(0),
+        order.stride(1), ta.data_ptr(), tb.data_ptr(), mask.data_ptr(), n, b, scan_levels(n),
+        policy, float(total_a), float(total_b), q.data_ptr(), thr.data_ptr(),
+        _build.stream_of(vs),
+    )
+    _build.check(code, "cct_split_scan_gather")
+    return q, thr
+
+
 def split_scan_gather(vs, order, wm, rm, mask, total_w: float, total_r: float,
                       impl: str = "auto"):
     """Best split of every feature of a sorted block from its sort order.
@@ -238,23 +328,27 @@ def split_scan_gather(vs, order, wm, rm, mask, total_w: float, total_r: float,
     as in split_scan_ref → (quality (B,) f64, threshold (B,) f32)."""
     if _build.use_ref(vs, impl):
         return split_scan_gather_ref(vs, order, wm, rm, mask, total_w, total_r)
-    dev = vs.device
-    _build.require(vs, torch.float32, 2, "vs", dev, contiguous=False)
-    _build.require(order, torch.int64, 2, "order", dev, contiguous=False)
-    _build.require(wm, torch.float64, 1, "wm", dev)
-    _build.require(rm, torch.float64, 1, "rm", dev)
-    _build.require(mask, torch.bool, 1, "mask", dev)
-    n, b = vs.shape
-    if order.shape != vs.shape or any(t.shape != (n,) for t in (wm, rm, mask)) or n == 0:
-        raise ValueError("split_scan_gather: shapes "
-                         f"{[tuple(t.shape) for t in (vs, order, wm, rm, mask)]}")
-    q = torch.empty(b, dtype=torch.float64, device=dev)
-    thr = torch.empty(b, dtype=torch.float32, device=dev)
-    code = _build.lib().cct_split_scan_gather(
-        vs.data_ptr(), vs.stride(0), vs.stride(1), order.data_ptr(), order.stride(0),
-        order.stride(1), wm.data_ptr(), rm.data_ptr(), mask.data_ptr(), n, b, scan_levels(n),
-        float(total_w), float(total_r), q.data_ptr(), thr.data_ptr(), _build.stream_of(vs),
-    )
-    _build.check(code, "cct_split_scan_gather")
+    out = _launch_gather(vs, order, wm, rm, mask, total_w, total_r, POLICY_REG)
     _build.LAUNCHES["split_scan_gather"] += 1
-    return q, thr
+    return out
+
+
+def split_scan_class_gather_ref(vs, order, w0, w1, mask, t0: float, t1: float, use_gini: bool):
+    """Plain version of split_scan_class_gather: the gather, then
+    split_scan_class_ref."""
+    return split_scan_class_ref(vs, *gather_inputs(order, w0, w1, mask), t0, t1, use_gini)
+
+
+def split_scan_class_gather(vs, order, w0, w1, mask, t0: float, t1: float, use_gini: bool,
+                            impl: str = "auto"):
+    """Best two-class split of every feature of a sorted block from its
+    sort order (DAB: misclassification, RAB: Gini): vs, order and mask as
+    in split_scan_gather; w0, w1 (N,) f64 the masked weights of the
+    class-0 and the class-1 samples (0 elsewhere), t0, t1 their totals in
+    sample order → (quality (B,) f64, threshold (B,) f32)."""
+    if _build.use_ref(vs, impl):
+        return split_scan_class_gather_ref(vs, order, w0, w1, mask, t0, t1, use_gini)
+    out = _launch_gather(vs, order, w0, w1, mask, t0, t1,
+                         POLICY_GINI if use_gini else POLICY_MISCLASS)
+    _build.LAUNCHES["split_scan_class_gather"] += 1
+    return out

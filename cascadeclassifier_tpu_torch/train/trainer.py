@@ -16,10 +16,10 @@ with the same stdout transcript. Replicates the reference training loop
   - final save in the modern cascade.xml format with featureMap compaction
     (cascadeclassifier.cpp:566-578), optional legacy Haar format
 
-Ported: Haar features (BASIC, CORE, ALL), GAB stumps. ``load`` reads any
-checkpoint; ``train`` raises NotImplementedError for LBP and HOG
-features, DAB/RAB/LB boosting, max_depth > 1 and a mesh. The trainer
-runs on ``device`` ("cuda" unless the caller asks for the CPU).
+Ported: Haar (BASIC, CORE, ALL) and LBP features, DAB, RAB, LB and GAB
+stumps. ``load`` reads any checkpoint; ``train`` raises
+NotImplementedError for HOG features, max_depth > 1 and a mesh. The
+trainer runs on ``device`` ("cuda" unless the caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from cascadeclassifier_tpu_torch.models.model import (
     FEATURE_LBP,
     CascadeModel,
     HaarFeature,
+    LBPFeature,
 )
 from cascadeclassifier_tpu_torch.models.xml_io import (
     read_params_xml,
@@ -91,9 +92,9 @@ class CascadeTrainer:
         self.stages = []  # stages with GLOBAL feature indices
 
     def _check_supported(self):
-        if self.feature_type != FEATURE_HAAR:
-            raise NotImplementedError("the port trains Haar cascades only: the LBP and "
-                                      "HOG training evaluators are not ported")
+        if self.feature_type not in (FEATURE_HAAR, FEATURE_LBP):
+            raise NotImplementedError("the port trains Haar and LBP cascades: the HOG "
+                                      "training evaluator is not ported")
         check_supported(self.boost, self.mesh)
 
     @property
@@ -272,6 +273,8 @@ class CascadeTrainer:
 
     def _feature_of_var(self, var: int):
         cat = self.evaluator.catalog
+        if self.feature_type == FEATURE_LBP:
+            return LBPFeature(rect=tuple(int(v) for v in cat.rects[var]))
         rects = []
         for r in range(3):
             if cat.weights[var, r] == 0.0:

@@ -8,7 +8,7 @@ TorchDetector on cuda:0, on 1920x1080 synthetic frames at scaleFactor
 .xml, 22 upright stages, engine "fused") on the plain vertical stack
 (pack_band=False):
 
-  (a) build     compile the CUDA kernels from csrc/ (nine sources), one nvcc per
+  (a) build     compile the CUDA kernels from csrc/ (ten sources), one nvcc per
                 source, all started together (seconds)
   (b) integral  kernel integral vs its plain twin on frame 0's canvas, as
                 uint8 (the fused engine's input) and as int32 (the same
@@ -139,7 +139,29 @@ budgets):
                 between the card and the CPU is printed (measured, not
                 held). Check 4: cascade.xml reads back to the
                 trained model, and both detector engines give the twin
-                path's raw windows on a 1080p frame with planted marks
+                path's raw windows on a 1080p frame with planted marks.
+                Check 5: a hand-built cascade of stumps over tilted and
+                upright Haar ALL features through predict_levels on
+                40 000 mining windows, the card's masks equal to the CPU's
+
+LBP and the other boost types, on (s)'s data:
+
+  (t) boost     1000 positives + 2000 negatives. Check 1: stage 0's LBP
+      types     code block (8464 features, 24x24) at two boosting
+                iterations through cat_split in its three policies
+                (regression, misclassification, Gini), bit for bit equal
+                to the plain version on the card (and on the CPU). Check
+                2: the first 3 stages of a 20-stage LBP run (GAB stumps,
+                weak_count 100, minHitRate 0.995, maxFalseAlarm 0.5) on
+                the card, each stage's first mining superbatch equal to
+                the CPU's, per-stage times by phase and trees a stage,
+                cat_split launched; stage 0 trained on the CPU too,
+                stage0.xml byte-identical. Check 3: stage 0's Haar blocks
+                at two DAB iterations through split_scan_class_gather
+                (misclassification and Gini) equal to its plain version.
+                Check 4: a DAB stage at 200 + 400 samples on the card and
+                on the CPU, stage0.xml byte-identical,
+                split_scan_class_gather launched
 
 and last, per kernel at its path's shapes: time against its twin, the
 least time the card could take (bytes over 3.35 TB/s or operations over
@@ -200,10 +222,11 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def bound(nbytes: float, nops: float):
+def bound(nbytes: float, nops: float, rate: float = F32_OPS_PER_S):
     """(least ms, what bounds it): each input read and each output written
-    once over the memory rate, or the operations over the f32 rate."""
-    by, op = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
+    once over the memory rate, or the operations over their rate (f32 by
+    default)."""
+    by, op = nbytes / HBM_BYTES_PER_S * 1e3, nops / rate * 1e3
     return (by, "bytes") if by >= op else (op, "operations")
 
 
@@ -802,8 +825,9 @@ def main():
                                   os.path.join(data, golden_name), img0, ctx)
 
     # ------------------------------------------------------------------
-    # (s) training
-    training_phase(dev, timed, work, errs, launches, timed_extra)
+    # (s) training, (t) LBP and the other boost types
+    vec, bg = training_phase(dev, timed, work, errs, launches, timed_extra)
+    boost_types_phase(dev, vec, bg, timed, work, errs, launches, timed_extra)
 
     meta = {
         "integral": ("cascadeclassifier_tpu_torch/csrc/integral.cu",
@@ -844,6 +868,14 @@ def main():
         "split_scan_gather": ("cascadeclassifier_tpu_torch/csrc/split_scan.cu",
                               "cascadeclassifier_tpu/train/boost.py:129 (XLA "
                               "_ordered_split_block after its sort, not Pallas)"),
+        "cat_split": ("cascadeclassifier_tpu_torch/csrc/cat_split.cu",
+                      "cascadeclassifier_tpu/train/boost.py:146 (XLA _categorical_split_block, "
+                      "not Pallas); cascadeclassifier_tpu/train/boost.py:274 (XLA "
+                      "_categorical_class_split_block)"),
+        "split_scan_class_gather": ("cascadeclassifier_tpu_torch/csrc/split_scan.cu",
+                                    "cascadeclassifier_tpu/train/boost.py:214 (XLA "
+                                    "_ordered_class_split_sorted, not Pallas); "
+                                    "cascadeclassifier_tpu/train/boost.py:258"),
     })
     kernels = []
     for name, (fk, fr, flib, plain_reps) in timed.items():
@@ -886,7 +918,44 @@ TRAIN_DIR = os.path.join(HERE, "_train_smoke")  # gitignored, removed at the end
 
 
 class ThreeStages(Exception):
-    """Ends phase (s)'s training run after its third stage."""
+    """Ends a phase's training run after its third stage."""
+
+
+def checked_trainer(tag: str, mismatches: list, **kw):
+    """A CascadeTrainer(**kw) that holds each stage's first mining
+    superbatch against a CPU trainer's (the count of differing masks goes
+    to mismatches), and stops its run once 3 stages are trained."""
+    from cascadeclassifier_tpu_torch.train.trainer import CascadeTrainer
+
+    cpu_kw = {**kw, "device": "cpu"}
+
+    class Checked(CascadeTrainer):
+        def _fill_positives(self, pos, count, consumed):
+            if len(self.stages) == 3:
+                raise ThreeStages
+            return super()._fill_positives(pos, count, consumed)
+
+        def _predictor(self):
+            pred = super()._predictor()
+            real, first = pred.predict_levels, [True]
+            cpu = CascadeTrainer(**cpu_kw)
+
+            def predict_levels(levels, ww, wh):
+                got = real(levels, ww, wh)
+                if first[0]:
+                    first[0] = False
+                    want = type(pred)(lambda: cpu.evaluator, self.stages).predict_levels(
+                        levels, ww, wh)
+                    mismatches.append(int(sum((g != c).sum() for g, c in zip(got, want))))
+                    print(f"({tag}) stage {len(self.stages)}: first mining superbatch, "
+                          f"{sum(len(g) for g in got)} windows, {int(sum(g.sum() for g in got))}"
+                          f" accepted, {mismatches[-1]} masks differ from the CPU's", flush=True)
+                return got
+
+            pred.predict_levels = predict_levels
+            return pred
+
+    return Checked(**kw)
 
 
 def split_library(vs, ws, rs, kept, total_w, total_r):
@@ -914,7 +983,10 @@ def training_phase(dev, timed, work, errs, launches, timed_extra):
     from cascadeclassifier_tpu_torch.data.vec import PosReader, write_vec
     from cascadeclassifier_tpu_torch.detect.detector import TorchDetector, positions_to_rects
     from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml, write_cascade_xml
+    from cascadeclassifier_tpu_torch.ops.features import haar_catalog
     from cascadeclassifier_tpu_torch.train import boost
+    from cascadeclassifier_tpu_torch.train.evaluators import HaarTrainEvaluator
+    from cascadeclassifier_tpu_torch.train.predictor import CascadePredictor
     from cascadeclassifier_tpu_torch.train.split import split_scan, split_scan_gather, tree_sum
     from cascadeclassifier_tpu_torch.train.trainer import CascadeTrainer
     from cascadeclassifier_tpu_torch.utils import train_data
@@ -946,16 +1018,9 @@ def training_phase(dev, timed, work, errs, launches, timed_extra):
     valid = np.arange(n_pad) < n
     ev = tr.evaluator
     ev.set_samples(samples)
-    st = boost.StageTrainer(ev, boost.BoostParams(weak_count=2, max_false_alarm=0.0))
-    calls = []
-    find = st._find_best_split
-
-    def capture(cache, w, resp, mask):
-        calls.append((cache, w.copy(), resp.copy(), mask.copy()))
-        return find(cache, w, resp, mask)
-
-    st._find_best_split = capture
-    st.train(labels, valid=valid, verbose=False)
+    calls = capture_splits(boost.StageTrainer(ev, boost.BoostParams(weak_count=2,
+                                                                    max_false_alarm=0.0)),
+                           labels, valid)
     check(len(calls) == 2, f"stage 0 took {len(calls)} split searches, expected 2")
     n_blocks, worst = 0, {"split_scan": 0.0, "split_scan_gather": 0.0}
     full_block = None
@@ -1039,7 +1104,7 @@ def training_phase(dev, timed, work, errs, launches, timed_extra):
     # (two scans, the quality, the compares) are far below the bytes' time
     work["split_scan"] = bound(nn * nb * (4 + 8 + 8 + 1) + nb * (8 + 4), 0)
     work["split_scan_gather"] = bound(nn * nb * (4 + 8) + nn * (8 + 8 + 1) + nb * (8 + 4), 0)
-    del calls, cache, st
+    del calls, cache
     torch.cuda.empty_cache()
 
     # -- check 2: three stages at full width, the CLI's budgets
@@ -1054,38 +1119,8 @@ def training_phase(dev, timed, work, errs, launches, timed_extra):
           f"blocks and {n_idx} index blocks resident, so every tree re-evaluates "
           f"{5 - n_val} blocks and every block takes the generic split path", flush=True)
     mismatches = []
-
-    class Checked(CascadeTrainer):
-        """Holds each stage's first mining superbatch against the CPU, and
-        stops the 20-stage run once 3 stages are trained."""
-
-        def _fill_positives(self, pos, count, consumed):
-            if len(self.stages) == 3:
-                raise ThreeStages
-            return super()._fill_positives(pos, count, consumed)
-
-        def _predictor(self):
-            pred = super()._predictor()
-            real, first = pred.predict_levels, [True]
-            cpu = CascadeTrainer(device="cpu")
-
-            def predict_levels(levels, ww, wh):
-                got = real(levels, ww, wh)
-                if first[0]:
-                    first[0] = False
-                    cpu_pred = type(pred)(lambda: cpu.evaluator, self.stages)
-                    want = cpu_pred.predict_levels(levels, ww, wh)
-                    mismatches.append(int(sum((g != c).sum() for g, c in zip(got, want))))
-                    print(f"(s) stage {len(self.stages)}: first mining superbatch, "
-                          f"{sum(len(g) for g in got)} windows, {int(sum(g.sum() for g in got))}"
-                          f" accepted, {mismatches[-1]} masks differ from the CPU's", flush=True)
-                return got
-
-            pred.predict_levels = predict_levels
-            return pred
-
     full = os.path.join(TRAIN_DIR, "full")
-    trainer = Checked(device=dev)
+    trainer = checked_trainer("s", mismatches, device=dev)
     reset_timings()
     _build.LAUNCHES.clear()
     try:  # the CLI's 20-stage run (its leaf false-alarm target), cut after stage 2
@@ -1145,9 +1180,6 @@ def training_phase(dev, timed, work, errs, launches, timed_extra):
 
     # -- 75x32 (the barcode window): partial sums may pass 2^24, where the
     # card's order of f32 adds could differ from the CPU's; measured, not held
-    from cascadeclassifier_tpu_torch.ops.features import haar_catalog
-    from cascadeclassifier_tpu_torch.train.evaluators import HaarTrainEvaluator
-
     cat = haar_catalog(75, 32, "BASIC")
     rng = np.random.default_rng(0)
     x75 = rng.integers(200, 256, (64, 32, 75)).astype(np.uint8)
@@ -1194,8 +1226,314 @@ def training_phase(dev, timed, work, errs, launches, timed_extra):
           f"{len(placed)} planted marks both engines give the same {len(found['fused'])} raw "
           f"windows, equal to the twin path, {hits} of the marks among them; "
           f"{time.perf_counter() - t4:.1f} s", flush=True)
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    # -- check 5: tilted features in the dense miner (the upright and the
+    # tilted products, then the division), card against CPU
+    t5 = time.perf_counter()
+    stages = tilted_stumps(samples[:n], dev)
+    levels, total = [], 0
+    reader = NegReader(bg, 24, 24, lazy=True)
+    while total < 40000:
+        img, pos = reader.level_positions()
+        levels.append((img, pos, (reader.last, float(reader.scale))))
+        total += len(pos)
+        reader.skip(len(pos))
+    masks = {}
+    for where in (dev, "cpu"):
+        ev_all = HaarTrainEvaluator(haar_catalog(24, 24, "ALL"), device=where)
+        masks[where] = CascadePredictor(lambda e=ev_all: e, stages).predict_levels(levels, 24, 24)
+    n_tilted = len({int(t.feature_idx[0]) for st in stages for t in st.trees
+                    if ev_all.catalog.tilted[t.feature_idx[0]]})
+    n_ok = int(sum(m.sum() for m in masks[dev]))
+    check(all(np.array_equal(a, b) for a, b in zip(masks[dev], masks["cpu"])),
+          "tilted cascade: the card's mining masks differ from the CPU's")
+    check(0 < n_ok < total, f"tilted cascade accepts {n_ok} of {total} windows")
+    print(f"(s) check 5: a cascade of {sum(len(st.trees) for st in stages)} stumps over "
+          f"Haar ALL features, {n_tilted} of them tilted: predict_levels on {len(levels)} mining "
+          f"levels, {total} windows, {n_ok} accepted, masks equal to the CPU's; "
+          f"{time.perf_counter() - t5:.1f} s", flush=True)
     print(f"(s) phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return vec, bg
+
+
+def tilted_stumps(samples, dev):
+    """Two stages of stumps over 24x24 Haar ALL features, five tilted and
+    one upright a stage (global indices), thresholds at quantiles of their
+    values on the samples, each stage passing about half of them."""
+    from cascadeclassifier_tpu_torch.models.model import Stage, WeakTree
+    from cascadeclassifier_tpu_torch.ops.features import haar_catalog
+    from cascadeclassifier_tpu_torch.train.evaluators import HaarTrainEvaluator
+
+    ev = HaarTrainEvaluator(haar_catalog(24, 24, "ALL"), device=dev)
+    ev.set_samples(samples)
+    rng = np.random.default_rng(3)
+    tilted = np.flatnonzero(ev.catalog.tilted)
+    stages = []
+    for s in range(2):
+        ids = np.concatenate([rng.choice(tilted, 5, replace=False),
+                              rng.choice(np.flatnonzero(~ev.catalog.tilted), 1)])
+        vals = ev.values_for_vars(ids).cpu().numpy()
+        trees, sums = [], 0.0
+        for k, f in enumerate(ids):
+            thr = np.float32(np.quantile(vals[k], 0.3 + 0.1 * k))
+            leaves = np.array([-0.5 - 0.1 * k, 0.7], np.float32)
+            trees.append(WeakTree(left=np.array([0], np.int32), right=np.array([-1], np.int32),
+                                  feature_idx=np.array([f], np.int32),
+                                  threshold=np.array([thr], np.float32), leaf_values=leaves))
+            sums = sums + np.where(vals[k] <= thr, leaves[0], leaves[1]).astype(np.float64)
+        stages.append(Stage(threshold=float(np.quantile(sums, 0.4 + 0.2 * s)), trees=trees))
+    return stages
+
+
+def cat_library(codes, t0, t1, policy: str):
+    """The categorical split as library calls (two f64 scatter_add_
+    histograms, a stable torch.sort, torch.cumsum, the quality and
+    torch.max), for its time only: the adds' order is not the JAX
+    package's."""
+    b, n = codes.shape
+    idx = (codes.long() + torch.arange(b, device=codes.device)[:, None] * 256).reshape(-1)
+    h0 = torch.zeros(b * 256, dtype=torch.float64, device=codes.device)
+    h1 = torch.zeros_like(h0)
+    h0.scatter_add_(0, idx, t0.expand(b, n).reshape(-1))
+    h1.scatter_add_(0, idx, t1.expand(b, n).reshape(-1))
+    h0, h1 = h0.view(b, 256), h1.view(b, 256)
+    key = torch.where(h0.abs() > 2.220446049250313e-16, h1 / h0, 0.0) if policy == "reg" else h1
+    order = torch.sort(key, dim=1, stable=True).indices
+    s0, s1 = h0.gather(1, order), h1.gather(1, order)
+    if policy == "reg":
+        s1 = key.gather(1, order) * s0
+    l0, l1 = torch.cumsum(s0, 1), torch.cumsum(s1, 1)
+    r0, r1 = h0.sum(1, keepdim=True) - l0, h1.sum(1, keepdim=True) - l1
+    if policy == "reg":
+        q = (l1 * l1 * r0 + r1 * r1 * l0) / (l0 * r0)
+    else:
+        q = torch.maximum(l0 + r1, l1 + r0)
+    return torch.max(q[:, :255], 1)
+
+
+def class_split_library(vs, w0s, w1s, kept, t0, t1):
+    """The two-class (misclassification) split as library calls, for its
+    time only."""
+    inf = torch.tensor(float("inf"), device=vs.device)
+    c0, c1 = torch.cumsum(w0s, 0), torch.cumsum(w1s, 0)
+    nxt = torch.flip(torch.cummin(torch.flip(torch.where(kept, vs, inf), [0]), 0).values, [0])
+    nxt = torch.cat([nxt[1:], inf.expand(1, vs.shape[1])])
+    ok = kept & (vs + 2.384185791015625e-07 < nxt)
+    q, best = torch.max(torch.where(ok, torch.maximum(c0 + (t1 - c1), c1 + (t0 - c0)),
+                                    float("-inf")), 0)
+    return q, (vs.gather(0, best[None]) + nxt.gather(0, best[None]))[0] * 0.5
+
+
+def capture_splits(st, labels, valid):
+    """Train st (a StageTrainer) and keep the inputs of each split search."""
+    calls = []
+    find = st._find_best_split
+
+    def capture(cache, w, resp, mask):
+        calls.append((cache, w.copy(), resp.copy(), mask.copy()))
+        return find(cache, w, resp, mask)
+
+    st._find_best_split = capture
+    st.train(labels, valid=valid, verbose=False)
+    return calls
+
+
+def boost_types_phase(dev, vec, bg, timed, work, errs, launches, timed_extra):
+    """(t): LBP training at 24x24 (all 8 464 features, GAB stumps, the
+    categorical kernel) and a DAB stage (the two-class policy of the split
+    kernel), on (s)'s data; see the module docstring."""
+    import shutil
+
+    from cascadeclassifier_tpu_torch import _build
+    from cascadeclassifier_tpu_torch.data.negreader import NegReader
+    from cascadeclassifier_tpu_torch.data.vec import PosReader
+    from cascadeclassifier_tpu_torch.models.model import BOOST_DAB, FEATURE_LBP
+    from cascadeclassifier_tpu_torch.train import boost
+    from cascadeclassifier_tpu_torch.train.cat_split import (
+        categorical_class_split,
+        categorical_split,
+    )
+    from cascadeclassifier_tpu_torch.train.split import split_scan_class_gather, tree_sum
+    from cascadeclassifier_tpu_torch.train.trainer import CascadeTrainer
+    from cascadeclassifier_tpu_torch.utils.profiling import reset_timings, timings
+
+    t0 = time.perf_counter()
+    lbp = CascadeTrainer(feature_type=FEATURE_LBP, device=dev)
+    pos = lbp._fill_positives(PosReader(vec, 24, 24), 1000, [0])
+    neg = lbp._fill_negatives(NegReader(bg, 24, 24, lazy=True), 2000, 0.0, [0])
+    n, n_pad = 3000, 3072
+    samples = np.concatenate([pos, neg, np.zeros((n_pad - n, 24, 24), np.uint8)])
+    labels = np.concatenate([np.ones(1000, np.int32), np.zeros(n_pad - 1000, np.int32)])
+    valid = np.arange(n_pad) < n
+    cls = labels == 1
+
+    # -- check 1: the categorical kernel on stage 0's code block at two
+    # boosting iterations, every policy, against its plain version
+    ev = lbp.evaluator
+    ev.set_samples(samples)
+    calls = capture_splits(boost.StageTrainer(ev, boost.BoostParams(weak_count=2,
+                                                                    max_false_alarm=0.0)),
+                           labels, valid)
+    check(len(calls) == 2 and calls[0][0].num_blocks == 1,
+          f"LBP stage 0: {len(calls)} split searches over {calls[0][0].num_blocks} blocks")
+    codes = calls[0][0].block_values(0)
+    worst = 0.0
+    for it, (_cache, w, resp, mask) in enumerate(calls):
+        wm = torch.as_tensor(np.where(mask, w, 0.0), device=dev)
+        tables = {"reg": (wm, wm * torch.as_tensor(resp, device=dev)),
+                  "class": (torch.where(torch.as_tensor(cls, device=dev), 0.0, wm),
+                            torch.where(torch.as_tensor(cls, device=dev), wm, 0.0))}
+        runs = {"reg": lambda impl="auto": categorical_split(codes, *tables["reg"], impl=impl),
+                "misclass": lambda impl="auto": categorical_class_split(
+                    codes, *tables["class"], False, impl=impl),
+                "gini": lambda impl="auto": categorical_class_split(
+                    codes, *tables["class"], True, impl=impl)}
+        for policy, run in runs.items():
+            (q, sub), (q_t, sub_t) = run(), run(impl="ref")
+            check(torch.equal(q, q_t) and torch.equal(sub, sub_t),
+                  f"cat_split ({policy}) != its plain version: iteration {it}")
+            fin = torch.isfinite(q_t)
+            worst = max(worst, float((q[fin] - q_t[fin]).abs().max()))
+        if it == 0:  # the plain version on the CPU gives the same bits
+            q_c, sub_c = categorical_split(codes.cpu(), *(x.cpu() for x in tables["reg"]))
+            q, sub = runs["reg"]()
+            check(torch.equal(q.cpu(), q_c) and torch.equal(sub.cpu(), sub_c),
+                  "cat_split != the plain version on the CPU")
+    errs["cat_split"] = worst
+    b, nn = codes.shape
+    print(f"(t) check 1: cat_split on stage 0's LBP code block ({b} features x {nn} samples) "
+          f"at 2 boosting iterations, regression, misclassification and Gini, bit for bit "
+          f"equal to the plain version on the card (and on the CPU, regression, iteration 0); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    reg, cls_t = tables["reg"], tables["class"]
+    timed["cat_split"] = (lambda: categorical_split(codes, *reg),
+                          lambda: categorical_split(codes, *reg, impl="ref"),
+                          lambda: cat_library(codes, *reg, "reg"), 1)
+    timed_extra["cat_split"] = {
+        "misclass_ms": lambda: categorical_class_split(codes, *cls_t, False),
+        "gini_ms": lambda: categorical_class_split(codes, *cls_t, True)}
+    # the codes and tables read once, the outputs written once; the
+    # histograms' f64 adds (two a sample and feature) at the f64 rate
+    work["cat_split"] = bound(b * nn * 4 + nn * 16 + b * (8 + 32), 2 * b * nn,
+                              F64_OPS_PER_S)
+    del calls
+
+    # -- check 2: the first 3 stages of LBP training on the card
+    t2 = time.perf_counter()
+    mismatches = []
+    full = os.path.join(TRAIN_DIR, "lbp")
+    trainer = checked_trainer("t", mismatches, feature_type=FEATURE_LBP, device=dev)
+    reset_timings()
+    _build.LAUNCHES.clear()
+    try:
+        trainer.train(full, vec, bg, num_pos=1000, num_neg=2000, num_stages=20)
+    except ThreeStages:
+        pass
+    torch.cuda.synchronize()
+    launches["cat_split"] = _build.LAUNCHES.get("cat_split", 0)
+    check(launches["cat_split"] > 0, "kernel cat_split was not launched on the main path")
+    check(_build.LAUNCHES.get("split_scan_gather", 0) == 0,
+          "LBP training launched the ordered split")
+    check(len(trainer.stages) == 3, f"the LBP trainer trained {len(trainer.stages)} stages")
+    check(all(m == 0 for m in mismatches), f"LBP accept masks differ from the CPU's: "
+                                           f"{mismatches}")
+    tm = timings()
+    for si in range(3):
+        per_stage = {k: tm[k][si] for k in ("fill_positives", "fill_negatives", "set_samples",
+                                            "train_stage")}
+        print(f"(t) stage {si}: {len(trainer.stages[si].trees)} trees, "
+              f"{sum(per_stage.values()):.2f} s (" + ", ".join(
+                  f"{k} {v:.2f}" for k, v in per_stage.items()) + ")", flush=True)
+    n_trees = sum(len(st.trees) for st in trainer.stages)
+    print(f"(t) check 2: 3 stages of a 20-stage LBP run (24x24, 8464 features in one block, "
+          f"GAB stumps, weak_count 100, minHitRate 0.995, maxFalseAlarm 0.5, 1000 + 2000 "
+          f"samples): {n_trees} trees, cat_split launched {launches['cat_split']} times; "
+          f"train_stage {sum(tm['train_stage']) / n_trees:.4f} s a tree; "
+          f"{time.perf_counter() - t2:.1f} s", flush=True)
+    t3 = time.perf_counter()
+    cpu_dir = os.path.join(TRAIN_DIR, "lbp_cpu")
+    CascadeTrainer(feature_type=FEATURE_LBP, device="cpu").train(
+        cpu_dir, vec, bg, num_pos=1000, num_neg=2000, num_stages=1, verbose=False)
+    with open(os.path.join(full, "stage0.xml"), "rb") as a, \
+            open(os.path.join(cpu_dir, "stage0.xml"), "rb") as c:
+        card, host = a.read(), c.read()
+    check(card == host, "LBP stage0.xml trained on the card differs from the CPU's")
+    print(f"(t) check 2: stage 0 trained on the CPU at 1000 + 2000 samples: stage0.xml "
+          f"byte-identical to the card's ({len(host)} bytes); "
+          f"{time.perf_counter() - t3:.1f} s", flush=True)
+
+    # -- check 3: the two-class policy of the split kernel on stage 0's Haar
+    # blocks (DAB classes) at two boosting iterations, against its plain version
+    t4 = time.perf_counter()
+    haar = CascadeTrainer(device=dev)
+    ev = haar.evaluator
+    ev.set_samples(samples)
+    calls = capture_splits(boost.StageTrainer(ev, boost.BoostParams(
+        boost_type=BOOST_DAB, weak_count=2, max_false_alarm=0.0)), labels, valid)
+    check(len(calls) == 2, f"DAB stage 0 took {len(calls)} split searches, expected 2")
+    worst, full_block = 0.0, None
+    cls_dev = torch.as_tensor(cls, device=dev)
+    for it, (cache, w, _resp, mask) in enumerate(calls):
+        wm = np.where(mask, w, 0.0)
+        w0, w1 = np.where(cls, 0.0, wm), np.where(cls, wm, 0.0)
+        t0c = tree_sum(w0)
+        t1c = tree_sum(wm) - t0c
+        wm_dev = torch.as_tensor(wm, device=dev)
+        tabs = (torch.where(cls_dev, 0.0, wm_dev), torch.where(cls_dev, wm_dev, 0.0),
+                torch.as_tensor(mask, device=dev), t0c, t1c)
+        for b in range(cache.num_blocks):
+            order, vs = cache.sorted_block(b)
+            for gini in (False, True):
+                q, thr = split_scan_class_gather(vs, order, *tabs, gini)
+                q_t, thr_t = split_scan_class_gather(vs, order, *tabs, gini, impl="ref")
+                check(torch.equal(q, q_t) and torch.equal(thr, thr_t),
+                      f"split_scan_class_gather (gini {gini}) != its plain version: block {b}, "
+                      f"iteration {it}")
+                fin = torch.isfinite(q_t)
+                worst = max(worst, float((q[fin] - q_t[fin]).abs().max()),
+                            float((thr - thr_t).abs().max()))
+            if full_block is None and vs.shape[1] == ev.block_size:
+                full_block = (vs, order, tabs)
+    errs["split_scan_class_gather"] = worst
+    vs, order, tabs = full_block
+    nn, nb = vs.shape
+    print(f"(t) check 3: split_scan_class_gather on {cache.num_blocks} Haar blocks x 2 DAB "
+          f"iterations ({nn} samples x up to {nb} features), misclassification and Gini, bit "
+          f"for bit equal to the plain version on the card; {time.perf_counter() - t4:.1f} s",
+          flush=True)
+    timed["split_scan_class_gather"] = (
+        lambda: split_scan_class_gather(vs, order, *tabs, False),
+        lambda: split_scan_class_gather(vs, order, *tabs, False, impl="ref"),
+        lambda: class_split_library(vs, tabs[0][order], tabs[1][order], tabs[2][order],
+                                    *tabs[3:]), 1)
+    timed_extra["split_scan_class_gather"] = {
+        "gini_ms": lambda: split_scan_class_gather(vs, order, *tabs, True)}
+    work["split_scan_class_gather"] = bound(nn * nb * (4 + 8) + nn * (8 + 8 + 1) + nb * (8 + 4),
+                                            0)
+    del calls, cache
+
+    # -- check 4: a DAB stage on the card and on the CPU, byte for byte
+    t5 = time.perf_counter()
+    outs = {}
+    for where in (dev, "cpu"):
+        d = os.path.join(TRAIN_DIR, f"dab_{torch.device(where).type}")
+        _build.LAUNCHES.clear()
+        CascadeTrainer(boost=boost.BoostParams(boost_type=BOOST_DAB), device=where).train(
+            d, vec, bg, num_pos=200, num_neg=400, num_stages=1, verbose=False)
+        if where == dev:
+            launches["split_scan_class_gather"] = _build.LAUNCHES.get(
+                "split_scan_class_gather", 0)
+        with open(os.path.join(d, "stage0.xml"), "rb") as f:
+            outs[where] = f.read()
+    check(launches["split_scan_class_gather"] > 0,
+          "kernel split_scan_class_gather was not launched on the DAB stage")
+    check(outs[dev] == outs["cpu"], "DAB stage0.xml trained on the card differs from the CPU's")
+    print(f"(t) check 4: a DAB stage at 200 positives + 400 negatives, trained on the card "
+          f"(split_scan_class_gather launched {launches['split_scan_class_gather']} times) and "
+          f"on the CPU: stage0.xml byte-identical ({len(outs['cpu'])} bytes); "
+          f"{time.perf_counter() - t5:.1f} s", flush=True)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    print(f"(t) phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def kernel_vs_twin(name: str, run, ctx):

@@ -53,7 +53,8 @@ def test_resume_from_a_checkpoint_matches_original(toy_stage0):
 
 def test_resume_from_reference_checkpoint():
     """The reference trainer's LBP checkpoint loads to the JAX package's
-    stages; training on from it raises (LBP training is not ported)."""
+    stages; training on from it gets past the support checks (LBP training
+    is ported) to the sample files, where both trainers stop alike."""
     ours, theirs = CascadeTrainer(device="cpu"), JCascadeTrainer()
     assert ours.load(REF_CHECKPOINT) and theirs.load(REF_CHECKPOINT)
     assert ours.feature_type == theirs.feature_type == FEATURE_LBP
@@ -66,8 +67,9 @@ def test_resume_from_reference_checkpoint():
         for ta, tb in zip(a.trees, b.trees):
             for f in ("left", "right", "feature_idx", "subsets", "leaf_values"):
                 np.testing.assert_array_equal(getattr(ta, f), getattr(tb, f))
-    with pytest.raises(NotImplementedError):
-        ours.train(REF_CHECKPOINT, "unused.vec", "unused.txt", 10, 10, num_stages=3)
+    for trainer in (ours, theirs):
+        with pytest.raises(FileNotFoundError, match="unused.vec"):
+            trainer.train(REF_CHECKPOINT, "unused.vec", "unused.txt", 10, 10, num_stages=3)
     assert not CascadeTrainer(device="cpu").load(os.path.dirname(REF_CHECKPOINT))
 
 

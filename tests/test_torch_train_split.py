@@ -253,7 +253,19 @@ def _first_max(a, b):
     return b if b[0] > a[0] or (b[0] == a[0] and b[1] < a[1]) else a
 
 
-def _kernel_in_numpy(vs, ws, rs, kept, tw, tr):
+def _qualities(policy, lw, lr, tw, tr, n):
+    """The kernel's quality policies at candidate positions: regression
+    (lw, lr the prefixes of the weights and weight·responses), and the
+    two-class misclassification and Gini qualities (lw, lr the prefixes of
+    the class-0 and class-1 weights, tw, tr their totals)."""
+    if policy == "reg":
+        return split.quality(lw, lr, tw - lw, tr - lr, n)
+    if policy == "gini":
+        return split.gini(lw, lr, tw - lw, tr - lr, split.gini_l1_first(n))
+    return torch.maximum(lw + (tr - lr), lr + (tw - lw))
+
+
+def _kernel_in_numpy(vs, ws, rs, kept, tw, tr, policy="reg"):
     """csrc/split_scan.cu step for step: tiles of 16 features; per feature,
     chunks of 256 samples; in a chunk one thread a block of 16 (sequential
     prefixes from +0.0), the sequential sum of the block totals before it
@@ -262,15 +274,20 @@ def _kernel_in_numpy(vs, ws, rs, kept, tw, tr):
     suffix and the blocks after it, the chunk's last kept position carried
     and judged (by thread 0) against the first kept value of the next chunk
     that holds one; each thread's first maximum, merged by the kernel's
-    xor pattern."""
+    xor pattern. policy: the quality ("reg", "misclass" or "gini"; ws, rs
+    the class-0 and class-1 weights for the last two)."""
     n, b = vs.shape
     levels = split.scan_levels(n)
     inf32 = np.float32(np.inf)
     qs, thrs = np.empty(b), np.empty(b, np.float32)
 
-    def valid(v, nx, lw):
-        return (np.float32(v + TWO_EPS) < nx and np.isfinite(nx) and lw > 0
-                and tw - lw > 0)
+    def valid(v, nx, lw, lr):
+        ok = np.float32(v + TWO_EPS) < nx and np.isfinite(nx)
+        if policy == "reg":
+            return ok and lw > 0 and tw - lw > 0
+        if policy == "gini":
+            return ok and lw + lr > 0 and (tw - lw) + (tr - lr) > 0
+        return ok
 
     for tile in range(-(-b // TILE)):
         for f in range(tile * TILE, min(b, (tile + 1) * TILE)):
@@ -315,7 +332,7 @@ def _kernel_in_numpy(vs, ws, rs, kept, tw, tr):
                         if not kp:
                             continue
                         if has_next:
-                            if valid(v, nx, lw):
+                            if valid(v, nx, lw, lr):
                                 cands[k].append((i, v, nx, lw, lr))
                         else:
                             last = (i, v, lw, lr)
@@ -326,7 +343,7 @@ def _kernel_in_numpy(vs, ws, rs, kept, tw, tr):
                     if pend is not None:
                         i, v, lw, lr = pend
                         cf = min(fk)
-                        if valid(v, cf, lw):
+                        if valid(v, cf, lw, lr):
                             cands[0].append((i, v, cf, lw, lr))
                     pend = last
                 if levels >= 2:
@@ -338,7 +355,7 @@ def _kernel_in_numpy(vs, ws, rs, kept, tw, tr):
                 if cs:
                     lw = torch.tensor([x[3] for x in cs], dtype=torch.float64)
                     lr = torch.tensor([x[4] for x in cs], dtype=torch.float64)
-                    q = split.quality(lw, lr, tw - lw, tr - lr, n).tolist()
+                    q = _qualities(policy, lw, lr, tw, tr, n).tolist()
                     for (i, v, nx, _lw, _lr), qq in zip(cs, q):
                         bt = _first_max(bt, (qq, i, v, nx))
                 best.append(bt)
