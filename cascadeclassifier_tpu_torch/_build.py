@@ -22,6 +22,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -36,6 +37,7 @@ HEADERS = ("cascade_tile.cuh",)
 NVCC_FLAGS = (
     "-O3",
     "--fmad=false",
+    "-Xptxas", "-v",  # registers and spills a kernel, kept in <source>.log
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-Xcompiler", "-fPIC",
@@ -83,6 +85,8 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _D, _D, _P, _P, _P],
     # codes, the two tables, n, b, policy, q, subset, stream
     "cct_cat_split": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # n, the features one launch works on at once (out)
+    "cct_cat_split_slots": [_I, ctypes.POINTER(_I)],
 }
 
 _lib = None
@@ -131,12 +135,30 @@ def build() -> str:
         outputs = [proc.communicate()[0] for proc in procs]  # every job ends first
         for cmd, proc, output in zip(jobs, procs, outputs):
             _raise_on_failure(cmd, proc.returncode, output)
+        for s, output in zip(SOURCES, outputs):
+            with open(os.path.join(out_dir, s + ".log"), "w") as f:
+                f.write(output)
         so = os.path.join(tmp, LIB_NAME)
         cmd = [nvcc, "-shared", "-o", so, *objs]
         proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         _raise_on_failure(cmd, proc.returncode, proc.stdout)
         os.replace(so, lib_path)
     return lib_path
+
+
+def kernel_resources(source: str) -> list:
+    """ptxas's report for each kernel of a built source: (entry point,
+    registers, spill store bytes, spill load bytes)."""
+    with open(os.path.join(os.path.dirname(build()), source + ".log")) as f:
+        log = f.read()
+    out = []
+    for part in re.split(r"Compiling entry function '", log)[1:]:
+        name = part.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+        out.append((name, int(regs.group(1)) if regs else None,
+                    *(map(int, spill.groups()) if spill else (None, None))))
+    return out
 
 
 def _raise_on_failure(cmd, code: int, output: str):

@@ -11,8 +11,10 @@ masked weights of class 0 and of class 1), a stable ascending sort of the
 categories (by mean response, or by class-1 weight), the prefix sums in
 that order, the quality at each of the first 255 positions, its first
 maximum, and the categories up to it as a subset of 8 words of 32 bits
-(bit c & 31 of word c >> 5). A CUDA tensor runs ``csrc/cat_split.cu``; a
-CPU tensor, or ``impl="ref"``, runs the plain version.
+(bit c & 31 of word c >> 5). A CUDA tensor runs ``csrc/cat_split.cu``
+(a warp a feature: equal codes of a window of 32 samples grouped by
+``__match_any_sync``, each group summed in sample order); a CPU tensor,
+or ``impl="ref"``, runs the plain version.
 
 The bits follow XLA:CPU's order for the JAX package's programs, as in
 train/split.py: each histogram bin is a ``jnp.sum`` of a masked row, so
@@ -25,6 +27,8 @@ fma(fma(l0, l0, l1²), rw, fma(r0, r0, r1²)·lw).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -180,6 +184,14 @@ def _launch(codes, t0, t1, policy: int):
     _build.check(code, "cct_cat_split")
     _build.LAUNCHES["cat_split"] += 1
     return q, subset
+
+
+def wave_features(n: int) -> int:
+    """The features one launch of the kernel at n samples works on at once
+    on the current CUDA device (a warp each)."""
+    slots = ctypes.c_int(0)
+    _build.check(_build.lib().cct_cat_split_slots(n, ctypes.byref(slots)), "cct_cat_split_slots")
+    return slots.value
 
 
 def categorical_split(codes, wm, rm, impl: str = "auto"):

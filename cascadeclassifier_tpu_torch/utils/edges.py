@@ -22,6 +22,12 @@ its first stages), LBP stumps (the LBP frontal face), a hand-built LBP
 cascade of 2-node trees (``lbp_two_node_model``) and a hand-built stump
 cascade whose stage threshold lies between the f32 and the f64 sums of
 its leaves (``knife_edge_model``), where the two modes must differ.
+The categorical split kernel (``csrc/cat_split.cu``) takes code blocks at
+sample counts around its tree's levels (31/32/33, 1 023/1 024/1 025,
+32 767/32 768/32 769), each with a feature of uniform codes holding a
+window of one code, a feature of 4 codes, a feature all in one category
+and a feature of skewed codes; and skewed blocks of one feature less than,
+as many as and one more than one launch's warps (``cat_split_edge_cases``).
 ``chip_smoke.py`` and the card's tests run the same cases.
 """
 
@@ -52,6 +58,11 @@ from cascadeclassifier_tpu_torch.detect.records import TILE_H, TILE_W
 from cascadeclassifier_tpu_torch.detect.stage import stage
 from cascadeclassifier_tpu_torch.detect.tilted import CHUNK_ROWS, STRIP_COLS, tilted
 from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml
+from cascadeclassifier_tpu_torch.train.cat_split import (
+    categorical_class_split,
+    categorical_split,
+    wave_features,
+)
 from cascadeclassifier_tpu_torch.utils.synth import synth_frame
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
@@ -75,6 +86,10 @@ TILTED_PADS = (0, 3, 2 * CHUNK_ROWS + 4, 500)  # the third: the tallest run's ro
 INTEGRAL_HEIGHTS = (1, BAND_ROWS - 1, BAND_ROWS, BAND_ROWS + 1, 3 * BAND_ROWS + 5)
 INTEGRAL_WIDTHS = (1, 31, 32, 33, 1921, 3841, APPLY_THREADS * APPLY_COLS,
                    APPLY_THREADS * APPLY_COLS + 1)
+# around a window of 32, one level (1 024) and two levels (32 768) of the
+# categorical kernel's tree; the trainer's padded sample count
+CAT_NS = (31, 32, 33, 1023, 1024, 1025, 32767, 32768, 32769)
+CAT_TRAIN_N = 3072
 
 
 def edge_masks(out_h: int, out_w: int, device) -> dict:
@@ -338,4 +353,61 @@ def integral_edge_mismatches(device):
         n += 1
         if not all(torch.equal(g, r) for g, r in zip(got, want)):
             bad.append(f"{px.shape[0]}x{px.shape[1]} {px.dtype}")
+    return n, bad
+
+
+def skewed_codes(rng, b: int, n: int) -> np.ndarray:
+    """(b, n) int32 LBP-like codes: about 60 % of each feature's samples
+    on 3 codes of its own (the uniform patterns real codes bunch on), the
+    rest spread over all 256."""
+    hot = rng.integers(0, 256, (b, 3))
+    bunched = np.take_along_axis(hot, rng.integers(0, 3, (b, n)), 1)
+    return np.where(rng.random((b, n)) < 0.6, bunched,
+                    rng.integers(0, 256, (b, n))).astype(np.int32)
+
+
+def _cat_tables(rng, n: int):
+    w = rng.random(n) ** 3
+    return w / w.sum(), rng.choice([-1.0, 1.0], n), rng.random(n) > 0.1
+
+
+def cat_split_edge_cases(wave: int):
+    """(label, codes (b, n) int32, w, resp, mask) numpy per case; wave: the
+    features one launch at CAT_TRAIN_N samples works on at once."""
+    for n in CAT_NS:
+        rng = np.random.default_rng(300 + n)
+        codes = np.stack([rng.integers(0, 256, n), rng.integers(0, 4, n), np.full(n, 77),
+                          skewed_codes(rng, 1, n)[0]]).astype(np.int32)
+        padded = -(-n // 32) * 32
+        lo0 = (padded - n) // 2 if n > 32 else 0
+        win = min(1, padded // 32 - 1)  # a window of one code in a uniform feature
+        codes[0, max(0, 32 * win - lo0):32 * win - lo0 + 32] = 200
+        yield f"n {n}", codes, *_cat_tables(rng, n)
+    for b in (wave - 1, wave, wave + 1):
+        rng = np.random.default_rng(400 + b)
+        yield (f"{b} features (a wave is {wave})", skewed_codes(rng, b, CAT_TRAIN_N),
+               *_cat_tables(rng, CAT_TRAIN_N))
+
+
+def cat_split_edge_mismatches(device):
+    """cat_split's kernel over cat_split_edge_cases() in its three policies
+    against the plain version on the same device → (cases run,
+    descriptions of the cases that differ)."""
+    with torch.cuda.device(device):
+        wave = wave_features(CAT_TRAIN_N)
+    n, bad = 0, []
+    for label, codes, w, resp, mask in cat_split_edge_cases(wave):
+        c = torch.from_numpy(codes).to(device)
+        wm = torch.from_numpy(np.where(mask, w, 0.0)).to(device)
+        cls = torch.from_numpy(resp > 0).to(device)
+        reg = (wm, wm * torch.from_numpy(resp).to(device))
+        two = (torch.where(cls, 0.0, wm), torch.where(cls, wm, 0.0))
+        for policy, run in (
+                ("regression", lambda **kw: categorical_split(c, *reg, **kw)),
+                ("misclassification", lambda **kw: categorical_class_split(c, *two, False, **kw)),
+                ("Gini", lambda **kw: categorical_class_split(c, *two, True, **kw))):
+            got, want = run(), run(impl="ref")
+            n += 1
+            if not all(torch.equal(g, r) for g, r in zip(got, want)):
+                bad.append(f"{label}, {policy}")
     return n, bad

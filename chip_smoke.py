@@ -86,7 +86,14 @@ edges:
                 f64 stage sums fall on both sides of its threshold, Haar
                 node trees (alt2; eye_tree cut to 4 stages, tilted, 3
                 nodes, stage only), LBP stumps and a hand-built LBP cascade
-                of 2-node trees; packed_front in f64 on its edge lists
+                of 2-node trees; packed_front in f64 on its edge lists.
+                Kernel cat_split vs its plain version in its three
+                policies on code blocks of 31, 32, 33, 1023, 1024, 1025,
+                32767, 32768 and 32769 samples (a uniform feature with a
+                window of one code, 4 codes, one category, skewed codes)
+                and on skewed 3072-sample blocks of one feature less than,
+                as many as and one more than a launch's warps
+                (utils/edges.py: cat_split_edge_cases)
 
 The f64 stage sums (exact=True, the detector's default; every phase above
 runs exact=False):
@@ -150,7 +157,11 @@ LBP and the other boost types, on (s)'s data:
       types     code block (8464 features, 24x24) at two boosting
                 iterations through cat_split in its three policies
                 (regression, misclassification, Gini), bit for bit equal
-                to the plain version on the card (and on the CPU). Check
+                to the plain version on the card (and on the CPU); the
+                kernel (regression) on uniform random codes and on one
+                code a feature of the same shape, bit for bit too, timed
+                with the real block beside the library composite;
+                ptxas's registers and spills for cat_split. Check
                 2: the first 3 stages of a 20-stage LBP run (GAB stumps,
                 weak_count 100, minHitRate 0.995, maxFalseAlarm 0.5) on
                 the card, each stage's first mining superbatch equal to
@@ -267,6 +278,14 @@ def walk_ops(cas, sum2d, tilt2d, inv_nf, out_w, evaluated) -> int:
     return total
 
 
+def gpu_info() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def flat_alive(mask):
     return torch.nonzero(mask.reshape(-1)).squeeze(1)
 
@@ -297,10 +316,12 @@ def main():
     from cascadeclassifier_tpu_torch.detect.tilted import tilted
     from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml
     from cascadeclassifier_tpu_torch.utils.edges import (
+        CAT_NS,
         FRONT_RANGES,
         INTEGRAL_HEIGHTS,
         INTEGRAL_WIDTHS,
         STAGE_RANGES,
+        cat_split_edge_mismatches,
         edge_mismatches,
         integral_edge_mismatches,
         packed_edge_mismatches,
@@ -316,10 +337,7 @@ def main():
     with open(os.path.join(data, "smoke_golden_1080p.json")) as f:
         golden = json.load(f)
     H, W, SF = golden["height"], golden["width"], golden["scale_factor"]
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = gpu_info()
 
     # (a) build
     t0 = time.perf_counter()
@@ -702,6 +720,12 @@ def main():
     print(f"(o) edges, integral: {n_cases} cases ({len(INTEGRAL_HEIGHTS)} heights x "
           f"{len(INTEGRAL_WIDTHS)} widths x uint8 and int32) equal to the twin (tolerance: "
           "exact)", flush=True)
+    n_cases, bad = cat_split_edge_mismatches(dev)
+    torch.cuda.synchronize()
+    check(not bad, f"(o) cat_split: kernel != plain version at {bad}")
+    print(f"(o) edges, cat_split: {n_cases} cases ({len(CAT_NS)} sample counts around the "
+          f"tree's levels x 4 features, 3 blocks around one wave of warps; x 3 policies) "
+          "equal to the plain version (tolerance: exact)", flush=True)
     for x in (px, px32):
         again = integral(x)
         check(torch.equal(again[0], s_k) and torch.equal(again[1], q_k),
@@ -1356,6 +1380,7 @@ def boost_types_phase(dev, vec, bg, timed, work, errs, launches, timed_extra):
     from cascadeclassifier_tpu_torch.train.split import split_scan_class_gather, tree_sum
     from cascadeclassifier_tpu_torch.train.trainer import CascadeTrainer
     from cascadeclassifier_tpu_torch.utils.profiling import reset_timings, timings
+    from cascadeclassifier_tpu_torch.utils.tune_cat_split import window_stats
 
     t0 = time.perf_counter()
     lbp = CascadeTrainer(feature_type=FEATURE_LBP, device=dev)
@@ -1406,12 +1431,38 @@ def boost_types_phase(dev, vec, bg, timed, work, errs, launches, timed_extra):
           f"equal to the plain version on the card (and on the CPU, regression, iteration 0); "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     reg, cls_t = tables["reg"], tables["class"]
+    # the same shape with other code distributions: uniform (groups of 1-3
+    # in a window of 32) and one code a feature (groups of 32)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dists = {"real": codes,
+             "uniform": torch.randint(0, 256, (b, nn), device=dev, generator=gen,
+                                      dtype=torch.int32),
+             "one_code": (torch.arange(b, device=dev, dtype=torch.int32) % 256)[:, None]
+             .expand(b, nn).contiguous()}
+    for name, c in dists.items():
+        check(all(torch.equal(x, y) for x, y in zip(categorical_split(c, *reg),
+                                                    categorical_split(c, *reg, impl="ref"))),
+              f"cat_split (regression) != its plain version on {name} codes")
+    dist_ms = {name: cuda_ms(lambda c=c: categorical_split(c, *reg), 20)
+               for name, c in dists.items()}
+    lib_ms = cuda_ms(lambda: cat_library(codes, *reg, "reg"), 20)
+    res = [r for r in _build.kernel_resources("cat_split.cu") if "cat_split_kernel" in r[0]]
+    check(res, "no ptxas report for cat_split_kernel")
+    print(f"(t) check 1: cat_split (regression) equal to its plain version on uniform and "
+          f"one-code blocks too; kernel ms by codes: " + ", ".join(
+              f"{k} {v:.4f} ({window_stats(c)} a window of 32)" for (k, v), c in zip(
+                  dist_ms.items(), dists.values())) + f"; library composite on the real "
+          f"block {lib_ms:.4f} ms ({gpu_info()}); ptxas: " + "; ".join(
+              f"{regs} registers, {st} B spill stores, {ld} B spill loads"
+              for _, regs, st, ld in res), flush=True)
     timed["cat_split"] = (lambda: categorical_split(codes, *reg),
                           lambda: categorical_split(codes, *reg, impl="ref"),
                           lambda: cat_library(codes, *reg, "reg"), 1)
     timed_extra["cat_split"] = {
         "misclass_ms": lambda: categorical_class_split(codes, *cls_t, False),
-        "gini_ms": lambda: categorical_class_split(codes, *cls_t, True)}
+        "gini_ms": lambda: categorical_class_split(codes, *cls_t, True),
+        "uniform_codes_ms": lambda: categorical_split(dists["uniform"], *reg),
+        "one_code_ms": lambda: categorical_split(dists["one_code"], *reg)}
     # the codes and tables read once, the outputs written once; the
     # histograms' f64 adds (two a sample and feature) at the f64 rate
     work["cat_split"] = bound(b * nn * 4 + nn * 16 + b * (8 + 32), 2 * b * nn,

@@ -39,6 +39,10 @@ from cascadeclassifier_tpu_torch.ops.features import eval_lbp, lbp_catalog  # no
 from cascadeclassifier_tpu_torch.train import boost, cat_split  # noqa: E402
 from cascadeclassifier_tpu_torch.train.evaluators import LBPTrainEvaluator  # noqa: E402
 from cascadeclassifier_tpu_torch.train.predictor import CascadePredictor  # noqa: E402
+from cascadeclassifier_tpu_torch.utils.edges import (  # noqa: E402
+    cat_split_edge_mismatches,
+    skewed_codes,
+)
 
 from .test_features import _load_geom, _load_imgs, _load_resp  # noqa: E402
 from .test_torch_train_boost_types import assert_same_run, diag_data, toy_both  # noqa: E402
@@ -97,7 +101,8 @@ def _codes_case(case):
     b, n, seed = {"test_train": (5, 300, 2), "n20": (7, 20, 3), "n32": (7, 32, 4),
                   "n33": (7, 33, 5), "n77": (9, 77, 6), "masked": (8, 500, 7),
                   "one_category": (6, 200, 8), "few_categories": (12, 400, 9),
-                  "tied_means": (10, 256, 10), "n3000": (3, 3000, 11)}[case]
+                  "tied_means": (10, 256, 10), "n3000": (3, 3000, 11),
+                  "skewed": (8, 1000, 12)}[case]
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 256, (b, n)).astype(np.int32)
     w = rng.random(n) ** 3
@@ -118,12 +123,14 @@ def _codes_case(case):
         w = rng.integers(1, 8, n) / 64.0
         codes = rng.integers(0, 16, (b, n)).astype(np.int32)
         resp = np.where(codes[0] % 2 == 0, 1.0, -1.0)
+    if case == "skewed":  # like real LBP codes: most samples on a few uniform patterns
+        codes = skewed_codes(rng, b, n)
     w /= w.sum()
     return codes, w, resp, mask
 
 
 CAT_CASES = ["test_train", "n20", "n32", "n33", "n77", "masked", "one_category",
-             "few_categories", "tied_means", "n3000"]
+             "few_categories", "tied_means", "n3000", "skewed"]
 
 
 @pytest.mark.parametrize("policy", ["reg", "misclass", "gini"])
@@ -310,53 +317,174 @@ def test_cat_split_kernel_matches_plain(cuda_device, case, policy):
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
 
 
-WINDOW, MAX_LEVELS = 32, 4  # csrc/cat_split.cu: kWindow, kMaxLevels
+@pytest.mark.cuda
+def test_cat_split_kernel_edges(cuda_device):
+    """utils/edges.py's categorical cases (the chip_smoke (o) set): sample
+    counts at the tree's levels, windows of one code, one-category
+    features, blocks around one wave of warps; every policy bit for bit."""
+    n_cases, bad = cat_split_edge_mismatches(cuda_device)
+    assert n_cases == 36 and not bad, bad
 
 
-def _bin_in_numpy(x, match):
-    """One thread of csrc/cat_split.cu's histogram: the tree of windows
-    (cct_cat_split's Tree) fed sample by sample, the matching samples
-    added into the open window of level 0, closed windows carried up
-    (push_up), the top level one sequential run."""
-    n = len(x)
+WINDOW, MAX_LEVELS, NCAT = 32, 4, 256  # csrc/cat_split.cu: kWindow, kMaxLevels, kCats
+
+
+def _tree(n):
+    """cct_cat_split's Tree: each level's item count and front padding."""
     lens, los = [n], [0]
     while lens[-1] > WINDOW:
         padded = -(-lens[-1] // WINDOW) * WINDOW
         los[-1] = (padded - lens[-1]) // 2
         lens.append(padded // WINDOW)
         los.append(0)
+    assert len(lens) - 1 <= MAX_LEVELS
+    return lens, los
+
+
+def _warp_walk_in_numpy(codes, x):
+    """csrc/cat_split.cu's phase 1 for one feature, replayed: the warp
+    takes the level-0 windows of 32 padded positions in turn (lane k holds
+    sample 32 w - lo[0] + k; lanes past the row code -1, no category);
+    lanes of equal codes form a group (__match_any_sync), which sums its
+    values in lane order from +0.0, and the group's first lane adds the
+    sum into its category's level-1 accumulator. Where (lo[1] + w) mod 32
+    == 31, or at the last window, the level-1 windows close: every
+    category's accumulator (a lane's 8 categories each; here all 256 at
+    once, elementwise) is taken out, reset and carried up the upper levels
+    (fold), the top level one sequential run. Returns the 256 bins."""
+    n = len(codes)
+    lens, los = _tree(n)
     levels = len(lens) - 1
-    assert levels <= MAX_LEVELS
-    acc, cnt = [0.0] * (levels + 1), [0] * (levels + 1)
-    for i in range(n):
-        p = los[0] + i
-        if p % WINDOW == 0 or i == 0:
-            acc[0] = 0.0
-        if match[i]:
-            acc[0] += float(x[i])
-        if levels > 0 and (p % WINDOW == WINDOW - 1 or i == n - 1):
-            v = acc[0]
-            for lv in range(1, levels + 1):
-                if lv == levels:
-                    acc[lv] += v
+    acc = np.zeros((max(levels, 1) + 1, NCAT))  # acc[l]: level l's open windows
+    cnt = [0] * (MAX_LEVELS + 1)
+    nw = lens[1] if levels else 1
+    lanes = np.arange(WINDOW)
+    for w in range(nw):
+        i = w * WINDOW - los[0] + lanes
+        inside = (i >= 0) & (i < n)
+        code = np.where(inside, codes[np.clip(i, 0, n - 1)], -1)
+        vals = np.where(inside, x[np.clip(i, 0, n - 1)], 0.0)
+        for lane in lanes:
+            group = np.flatnonzero(code == code[lane])
+            if group[0] != lane or code[lane] < 0:  # a category's leader adds
+                continue
+            s = 0.0
+            for k in group:
+                s += float(vals[k])
+            acc[1, code[lane]] += s
+        if levels > 1 and ((los[1] + w) % WINDOW == WINDOW - 1 or w == nw - 1):
+            v = acc[1].copy()
+            acc[1] = 0.0
+            for lv in range(2, levels + 1):
+                if lv == levels:  # the top
+                    acc[lv] = acc[lv] + v
                     break
-                q = los[lv] + cnt[lv]
-                acc[lv] = (0.0 if q % WINDOW == 0 or cnt[lv] == 0 else acc[lv]) + v
+                p = los[lv] + cnt[lv]
+                acc[lv] = (0.0 if p % WINDOW == 0 or cnt[lv] == 0 else acc[lv]) + v
+                v = acc[lv].copy()
                 cnt[lv] += 1
-                if not (q % WINDOW == WINDOW - 1 or cnt[lv] == lens[lv]):
+                if not (p % WINDOW == WINDOW - 1 or cnt[lv] == lens[lv]):
                     break
-                v = acc[lv]
-    return acc[levels]
+    return acc[max(levels, 1)]
 
 
-@pytest.mark.parametrize("n", [1, 31, 32, 33, 100, 1000, 1025, 1056, 3000, 33000])
-def test_kernel_histogram_walk_in_numpy_matches_plain(n):
+@pytest.mark.parametrize("n, one_code_window", [
+    *(pytest.param(n, None, id=str(n))
+      for n in (1, 31, 32, 33, 100, 1000, 1025, 1056, 3000, 33000, 70000)),
+    pytest.param(3000, 10, id="group32"),
+])
+def test_kernel_histogram_walk_in_numpy_matches_plain(n, one_code_window):
+    """The warp design's decomposition gives the plain bins bit for bit:
+    at n = 70 000 the level-1 windows (lo[1] = 10) close off the multiples
+    of 32 windows, and in "group32" every lane of window 10 holds one
+    code (a group of 32)."""
     rng = np.random.default_rng(n)
     codes = rng.integers(0, 3, (1, n)).astype(np.int32)
     x = rng.random(n) * rng.random(n) ** 8
+    if one_code_window is not None:
+        lo0 = _tree(n)[1][0]
+        codes[0, one_code_window * WINDOW - lo0:(one_code_window + 1) * WINDOW - lo0] = 2
     hist = cat_split.histograms(torch.from_numpy(codes), torch.from_numpy(x)[None])[0, 0].numpy()
-    for c in range(3):
-        assert _bin_in_numpy(x, codes[0] == c) == hist[c]
+    np.testing.assert_array_equal(_warp_walk_in_numpy(codes[0], x), hist)
+
+
+def _warp_sort_in_numpy(key):
+    """csrc/cat_split.cu's bitonic sort: lane l, register r holds position
+    8 l + r, category l + 32 r at the start; partners 8 positions or more
+    apart are in lane l ^ (j / 8) (a shuffle), nearer ones in the same
+    lane. Returns the categories in sorted order."""
+    per = NCAT // WINDOW
+    keys = np.array([[key[lane + WINDOW * r] for r in range(per)] for lane in range(WINDOW)])
+    idx = np.array([[lane + WINDOW * r for r in range(per)] for lane in range(WINDOW)])
+
+    def after(ka, ia, kb, ib):
+        return ka > kb or (ka == kb and ia > ib)
+
+    k = 2
+    while k <= NCAT:
+        j = k // 2
+        while j > 0:
+            if j >= per:
+                lj = j // per
+                nk, ni = keys.copy(), idx.copy()
+                for lane in range(WINDOW):
+                    o, lower = lane ^ lj, (lane & lj) == 0
+                    for r in range(per):
+                        up = ((lane * per + r) & k) == 0
+                        mine = after(keys[lane, r], idx[lane, r], keys[o, r], idx[o, r])
+                        if mine if lower == up else not mine:
+                            nk[lane, r], ni[lane, r] = keys[o, r], idx[o, r]
+                keys, idx = nk, ni
+            else:
+                for lane in range(WINDOW):
+                    for r in range(per):
+                        s = r | j
+                        up = ((lane * per + r) & k) == 0
+                        if not r & j and after(keys[lane, r], idx[lane, r], keys[lane, s],
+                                               idx[lane, s]) == up:
+                            keys[lane, [r, s]] = keys[lane, [s, r]]
+                            idx[lane, [r, s]] = idx[lane, [s, r]]
+            j //= 2
+        k *= 2
+    return idx.reshape(-1)
+
+
+def _warp_scan_in_numpy(x):
+    """csrc/cat_split.cu's prefix sums of the 256 sorted values: a block
+    of 16 is lanes 2 b and 2 b + 1, each adding its 8 in turn from the
+    even lane's +0.0, plus the sequential sum of the earlier blocks'
+    totals."""
+    per = NCAT // WINDOW
+    q = np.empty((WINDOW, per))
+    for lane in range(WINDOW):
+        c = q[lane - 1, -1] if lane & 1 else 0.0
+        for r, v in enumerate(x[lane * per:(lane + 1) * per]):
+            c += float(v)
+            q[lane, r] = c
+    e = np.zeros(WINDOW)
+    for lane in range(WINDOW):
+        for k in range(lane >> 1):
+            e[lane] += q[2 * k + 1, -1]
+    return (q + e[:, None]).reshape(-1)
+
+
+@pytest.mark.parametrize("case", ["test_train", "few_categories", "tied_means", "n3000"])
+def test_kernel_sort_and_scans_in_numpy_match_plain(case):
+    """The warp's sort network gives the stable argsort of the keys (ties
+    and empty bins included), and its lane-pair scans jnp.cumsum's bits."""
+    codes, w, resp, mask = _codes_case(case)
+    wm = np.where(mask, w, 0.0)
+    h0, h1 = cat_split.histograms(torch.from_numpy(codes),
+                                  torch.from_numpy(np.stack([wm, wm * resp])))
+    means = torch.where(h0.abs() > cat_split.DBL_EPSILON, h1 / h0, 0.0)
+    for keys in (means, h1):
+        order = torch.sort(keys, dim=1, stable=True).indices
+        for f in range(codes.shape[0]):
+            np.testing.assert_array_equal(_warp_sort_in_numpy(keys[f].numpy()), order[f].numpy())
+    x = h0.gather(1, order)
+    want = cat_split._cumsum_rows(x).numpy()
+    for f in range(codes.shape[0]):
+        np.testing.assert_array_equal(_warp_scan_in_numpy(x[f].numpy()), want[f])
 
 
 @pytest.mark.parametrize("boost_type", ["GAB", "RAB"])
