@@ -31,7 +31,8 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("integral.cu", "front.cu", "patchify.cu", "tilted.cu", "stage.cu",
-           "packed_front.cu", "tile_node.cu", "tile_lbp.cu", "split_scan.cu", "cat_split.cu")
+           "packed_front.cu", "tile_node.cu", "tile_lbp.cu", "split_scan.cu", "cat_split.cu",
+           "hog_hist.cu", "hog_eval.cu")
 # included by front.cu, stage.cu, packed_front.cu, tile_node.cu and tile_lbp.cu
 HEADERS = ("cascade_tile.cuh",)
 NVCC_FLAGS = (
@@ -87,6 +88,10 @@ _SIGNATURES = {
     "cct_cat_split": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     # n, the features one launch works on at once (out)
     "cct_cat_split_slots": [_I, ctypes.POINTER(_I)],
+    # img, bin table, n, h, w, hist, norm, stream
+    "cct_hog_hist": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # hist, norm, cells, var ids, n, p, k, out, stream
+    "cct_hog_eval": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 _lib = None

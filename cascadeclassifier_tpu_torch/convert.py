@@ -13,8 +13,6 @@ import numpy as np
 from cascadeclassifier_tpu_torch.detect.detector import PackedCascade, PackedStage
 from cascadeclassifier_tpu_torch.detect.pyramid import PyramidPlan
 from cascadeclassifier_tpu_torch.models.model import (
-    FEATURE_HAAR,
-    FEATURE_LBP,
     HaarFeature,
     LBPFeature,
     Stage,
@@ -46,9 +44,9 @@ def _tree(t):
 def from_jax_packed(packed) -> PackedCascade:
     """``cascadeclassifier_tpu.detect.detector.PackedCascade`` → the port's
     ``PackedCascade``: Haar (stumps and node trees, upright and tilted)
-    and LBP (stumps and node trees)."""
-    if packed.feature_type not in (FEATURE_HAAR, FEATURE_LBP):
-        raise NotImplementedError("the port runs Haar and LBP cascades")
+    and LBP (stumps and node trees); the JAX package packs no HOG cascade
+    (its detect CLI sends one to HOGDetector, the port's TorchDetector to
+    ``detect/hog_detector.py``)."""
     stages = []
     for st in packed.stages:
         deep = None

@@ -6,7 +6,9 @@ window positions to image rects, and ``TorchDetector``, whose
 ``detect_multi_scale`` matches cv::CascadeClassifier::detectMultiScale
 for Haar cascades (stumps or node trees, upright or tilted features) and
 LBP cascades, with f64 stage sums (``exact=True``, the default, as the
-runtime and the JAX package) or f32 ones.
+runtime and the JAX package) or f32 ones. ``make_detector`` sends a HOG
+cascade to ``detect/hog_detector.py::HOGDetector`` instead, as the JAX
+package's detect CLI routes it.
 
 Runtime semantics replicated:
   - variance gate: reject window unless nf² > 0 and area/nf < 0.1
@@ -25,7 +27,12 @@ import torch
 from cascadeclassifier_tpu_torch.detect.grouping import clip_rects, group_rectangles
 from cascadeclassifier_tpu_torch.detect.pyramid import PyramidPlan, build_plan
 from cascadeclassifier_tpu_torch.detect.records import KINDS, node_tables, tile_pitch, tree_records
-from cascadeclassifier_tpu_torch.models.model import FEATURE_HAAR, FEATURE_LBP, CascadeModel
+from cascadeclassifier_tpu_torch.models.model import (
+    FEATURE_HAAR,
+    FEATURE_HOG,
+    FEATURE_LBP,
+    CascadeModel,
+)
 from cascadeclassifier_tpu_torch.ops.resize import _axis_tab
 
 THRESHOLD_EPS = np.float32(1e-5)
@@ -86,9 +93,9 @@ class PackedCascade:
     @classmethod
     def from_model(cls, m: CascadeModel) -> "PackedCascade":
         if m.feature_type not in (FEATURE_HAAR, FEATURE_LBP):
-            raise NotImplementedError(
-                "HOG cascades are served by the JAX package's HOGDetector; "
-                "the port runs Haar and LBP cascades"
+            raise ValueError(
+                "a HOG cascade has no packed form: detect/hog_detector.py::HOGDetector "
+                "serves it (make_detector routes it there)"
             )
         stages = []
         for s in m.stages:
@@ -272,7 +279,8 @@ class TorchDetector:
     the port takes: stump or node-tree Haar, upright or tilted, and LBP),
     or "auto" ("fused" for an upright stump Haar cascade, "pallas" for a
     tilted, node-tree or LBP one, whose every stage the stage kernel
-    runs). front_trees applies to "fused" only. HOG cascades raise.
+    runs). front_trees applies to "fused" only. A HOG cascade raises:
+    ``HOGDetector`` serves it (``make_detector`` picks the class).
 
     pack_band: the shelf-packed pyramid plan (``build_plan(pack_band=
     True)``); None takes it for "fused" and the plain stack for "pallas",
@@ -287,6 +295,9 @@ class TorchDetector:
                  pack_band: bool | None = None, packed_front: bool = False):
         from cascadeclassifier_tpu_torch.detect.engine import Engine, StageEngine
 
+        if model.feature_type == FEATURE_HOG:
+            raise ValueError("TorchDetector runs Haar and LBP cascades; a HOG cascade goes to "
+                             "detect/hog_detector.py::HOGDetector (see make_detector)")
         if engine not in ("auto", "fused", "pallas"):
             raise ValueError(f"engine must be 'auto', 'fused' or 'pallas', got {engine!r}")
         self.device = torch.device(device)
@@ -385,3 +396,15 @@ class TorchDetector:
                 max_det=max(max_det, 1 << 16))
             for i, f in enumerate(frames)
         ]
+
+
+def make_detector(model: CascadeModel, **options):
+    """The detector for ``model``, as the JAX package's detect CLI picks
+    it: ``HOGDetector`` for a HOG cascade (options ``device``, ``batch``,
+    ``impl``; an engine option raises TypeError, it does not apply), else
+    ``TorchDetector`` with the options."""
+    if model.feature_type == FEATURE_HOG:
+        from cascadeclassifier_tpu_torch.detect.hog_detector import HOGDetector
+
+        return HOGDetector(model, **options)
+    return TorchDetector(model, **options)

@@ -1,4 +1,4 @@
-"""Boosted cascade-stage trainer (DAB, RAB, LB, GAB; stumps).
+"""Boosted cascade-stage trainer (DAB, RAB, LB, GAB; trees of any depth).
 
 Counterpart of ``cascadeclassifier_tpu/train/boost.py`` (CvCascadeBoost,
 boost.cpp:166-518, with the CvBoostTree split search of
@@ -16,8 +16,10 @@ threshold) stays numpy f64 on the host, mirroring update_weights
 (boost.cpp:168-407), trim_weights (o_cvboost.cpp:101-139) and
 isErrDesired (boost.cpp:479-518).
 
-Ported: every boost type with stumps (max_depth 1). max_depth > 1 and a
-device mesh raise NotImplementedError.
+Weak trees of max_depth > 1 grow by recursive masked splits (node masks
+replace the reference's index-partitioning split_node_data): the same split
+kernels run under each node's mask. Ported: every boost type at any depth;
+a device mesh raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -83,8 +85,6 @@ class BoostParams:
 
 def check_supported(params: BoostParams, mesh=None):
     """Raise NotImplementedError for what the port does not train."""
-    if params.max_depth != 1:
-        raise NotImplementedError("the port trains stumps only (max_depth 1)")
     if mesh is not None:
         raise NotImplementedError("the port trains on one device: no mesh")
 
@@ -291,35 +291,75 @@ class StageTrainer:
         wm = np.where(node_mask, w, 0.0)
         return np.float32(tree_sum(wm * resp) / tree_sum(wm))
 
-    def _train_tree(self, cache, w, resp, mask):
-        """Grow one stump → (WeakTree, per-sample predictions), or
-        (None, None) when the root cannot split."""
-        p = self.params
-        if int(mask.sum()) <= p.min_sample_count:
-            return None, None
-        split = self._find_best_split(cache, w, resp, mask)
-        if split is None:
-            return None, None
-        var_idx, thr = split
-        vals = self._values_of_var(cache, var_idx)
-        if self.categorical:  # the subset bit of each code
+    def _go_left(self, tree_thr, vals):
+        """Per-sample branch of a node: the subset bit of each code
+        (categorical) or ``val <= thr``."""
+        if self.categorical:
             code = vals.astype(np.int64)
-            go_left = ((thr.astype(np.uint32)[code >> 5] >> (code & 31)) & 1) != 0
-        else:
-            go_left = vals <= thr
-        lmask, rmask = mask & go_left, mask & ~go_left
-        if lmask.sum() == 0 or rmask.sum() == 0:
+            return ((np.asarray(tree_thr, np.uint32)[code >> 5] >> (code & 31)) & 1) != 0
+        return vals <= tree_thr
+
+    def _train_tree(self, cache, w, resp, mask):
+        """Grow one weak tree by recursive masked splits (boost.py:725
+        ``grow`` of the JAX package) → (WeakTree, per-sample predictions),
+        or (None, None) when the root cannot split. Nodes are numbered in
+        pre-order, left subtree first; leaves are appended in the same walk
+        and coded -(leaf index). A node becomes a leaf at max_depth, at
+        min_sample_count samples or fewer, when no feature splits it, or
+        when a side of its best split is empty."""
+        p = self.params
+        nodes, leaves = [], []  # nodes: [left, right, var, thr or subset]
+
+        def leaf(node_mask):
+            leaves.append(self._node_value(w, resp, node_mask))
+            return -(len(leaves) - 1)
+
+        def grow(node_mask, depth):
+            if depth >= p.max_depth or int(node_mask.sum()) <= p.min_sample_count:
+                return leaf(node_mask)
+            split = self._find_best_split(cache, w, resp, node_mask)
+            if split is None:
+                return leaf(node_mask)
+            var_idx, thr = split
+            go_left = self._go_left(thr, self._values_of_var(cache, var_idx))
+            lmask, rmask = node_mask & go_left, node_mask & ~go_left
+            if lmask.sum() == 0 or rmask.sum() == 0:
+                return leaf(node_mask)
+            me = len(nodes)
+            nodes.append([0, 0, var_idx, thr])
+            nodes[me][0] = grow(lmask, depth + 1)
+            nodes[me][1] = grow(rmask, depth + 1)
+            return me
+
+        if grow(mask.copy(), 0) < 0:  # the root is a leaf: no tree
             return None, None
-        leaves = [self._node_value(w, resp, lmask), self._node_value(w, resp, rmask)]
         tree = WeakTree(
-            left=np.array([0], np.int32), right=np.array([-1], np.int32),
-            feature_idx=np.array([var_idx], np.int32),
-            threshold=None if self.categorical else np.array([thr], np.float32),
-            subsets=np.asarray(thr, np.int32)[None] if self.categorical else None,
+            left=np.array([nd[0] for nd in nodes], np.int32),
+            right=np.array([nd[1] for nd in nodes], np.int32),
+            feature_idx=np.array([nd[2] for nd in nodes], np.int32),
+            threshold=None if self.categorical else np.array([nd[3] for nd in nodes], np.float32),
+            subsets=np.stack([np.asarray(nd[3], np.int32) for nd in nodes])
+            if self.categorical else None,
             leaf_values=np.array(leaves, np.float32),
         )
-        preds = np.where(go_left, leaves[0], leaves[1]).astype(np.float64)
-        return tree, preds
+        return tree, self._predict_tree(tree, cache, mask.shape[0])
+
+    def _predict_tree(self, tree, cache, n):
+        """Leaf value of every sample in f64 from the f32 leaves (predict,
+        o_cvcascadeboosttree.cpp:16-39). Pre-order numbering puts every
+        node after its parent, so one pass in node order walks the tree."""
+        node = np.zeros(n, np.int64)
+        out = np.zeros(n, np.float64)
+        for ni in range(tree.num_nodes):
+            at = node == ni
+            if not at.any():
+                continue
+            thr = tree.subsets[ni] if self.categorical else tree.threshold[ni]
+            go_left = self._go_left(thr, self._values_of_var(cache, int(tree.feature_idx[ni])))
+            child = np.where(go_left, tree.left[ni], tree.right[ni])
+            out = np.where(at & (child <= 0), tree.leaf_values[-np.minimum(child, 0)], out)
+            node = np.where(at, np.where(child > 0, child, -1), node)
+        return out
 
     # -- boosting loop ------------------------------------------------------
 

@@ -1,4 +1,4 @@
-"""Training-side Haar and LBP evaluation: all samples × a block of features.
+"""Training-side Haar, LBP and HOG evaluation: all samples × a block of features.
 
 Counterpart of ``cascadeclassifier_tpu/train/evaluators.py::
 HaarTrainEvaluator``. Each rectangle sum is a ±1 4-corner functional of
@@ -13,7 +13,10 @@ LBP codes take the 9 cell sums of each feature the same way, a ±1 corner
 matrix (9·B, P) times the f32 integral rows (exact: integers below 2^24),
 then the 8 compares of ``lbp_code_grid``.
 
-The HOG training evaluator is not ported: make_evaluator raises.
+HOG responses are 36 a feature (var = f·36 + cell·9 + bin): the per-sample
+integral histograms of ``ops/hog.py::hog_integral_histogram`` and the
+gathered cell sums over block norms of ``ops/hog.py::hog_responses``
+(kernels on a CUDA tensor, their plain versions on a CPU one).
 """
 
 from __future__ import annotations
@@ -21,15 +24,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cascadeclassifier_tpu_torch.models.model import FEATURE_HAAR, FEATURE_LBP
+from cascadeclassifier_tpu_torch.models.model import FEATURE_HAAR, FEATURE_HOG, FEATURE_LBP
 from cascadeclassifier_tpu_torch.ops.features import (
     HAAR_BASIC,
+    HOG_FEAT_SIZE,
     HaarCatalog,
+    HOGCatalog,
     LBPCatalog,
     haar_catalog,
+    hog_catalog,
     lbp_catalog,
     lbp_code_grid,
 )
+from cascadeclassifier_tpu_torch.ops.hog import hog_integral_histogram, hog_responses
 from cascadeclassifier_tpu_torch.ops.integral import (
     integral_image,
     integral_sq,
@@ -202,11 +209,63 @@ class LBPTrainEvaluator:
         return self.codes(self.cell_matrix(ids), self.sum_rows)
 
 
+class HOGTrainEvaluator:
+    """HOG descriptor components (36 variables a feature) of cached sample
+    batches, block by block (CvHOGEvaluator, HOGfeatures.h:84-108): a bin's
+    sum over a cell of the per-bin integral histograms, over the block's L1
+    norm. Variable blocks hold whole features (block_size % 36 == 0)."""
+
+    maxCatCount = 0
+    featSize = HOG_FEAT_SIZE
+
+    def __init__(self, catalog: HOGCatalog, block_size: int = HOG_FEAT_SIZE * 1024,
+                 device="cuda", impl: str = "auto"):
+        """impl="ref" takes the kernels' plain versions on any device."""
+        if block_size % HOG_FEAT_SIZE:
+            raise ValueError(f"block_size must be a multiple of 36, got {block_size}")
+        self.catalog = catalog
+        self.block_size = block_size
+        self.device = torch.device(device)
+        self.win_w, self.win_h = catalog.win_w, catalog.win_h
+        self.p = (catalog.win_w + 1) * (catalog.win_h + 1)
+        self.num_features = len(catalog)
+        self.var_count = catalog.var_count
+        self._cells = torch.from_numpy(catalog.cell_corner_offsets()).to(self.device)
+        self.impl = impl
+        self.n = 0
+
+    def set_samples(self, samples):
+        """samples: (N, h, w) uint8 → caches the integral histograms."""
+        x = torch.as_tensor(samples).to(self.device)
+        hist, norm = hog_integral_histogram(x, impl=self.impl)
+        n = int(x.shape[0])
+        self.hist_rows = hist.reshape(n, 9, -1)
+        self.norm_rows = norm.reshape(n, -1)
+        self.n = n
+
+    def num_blocks(self):
+        return (self.var_count + self.block_size - 1) // self.block_size
+
+    def block_slice(self, b):
+        lo = b * self.block_size
+        return lo, min(lo + self.block_size, self.var_count)
+
+    def values_block(self, b: int):
+        """(B, N) f32 responses of variable block b on the cached samples."""
+        lo, hi = self.block_slice(b)
+        return self.values_for_vars(torch.arange(lo, hi, device=self.device))
+
+    def values_for_vars(self, var_ids):
+        """(K, N) responses of an explicit list of variable indices."""
+        ids = torch.as_tensor(var_ids, dtype=torch.int64, device=self.device)
+        return hog_responses(self.hist_rows, self.norm_rows, self._cells, ids, impl=self.impl)
+
+
 def make_evaluator(feature_type, win_w, win_h, haar_mode=HAAR_BASIC, device="cuda"):
     if feature_type == FEATURE_HAAR:
         return HaarTrainEvaluator(haar_catalog(win_w, win_h, haar_mode), device=device)
     if feature_type == FEATURE_LBP:
         return LBPTrainEvaluator(lbp_catalog(win_w, win_h), device=device)
-    raise NotImplementedError(
-        "the port trains Haar and LBP cascades: the HOG training evaluator is not ported"
-    )
+    if feature_type == FEATURE_HOG:
+        return HOGTrainEvaluator(hog_catalog(win_w, win_h), device=device)
+    raise ValueError(f"unknown feature type {feature_type}")

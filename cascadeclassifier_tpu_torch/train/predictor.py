@@ -1,22 +1,31 @@
 """Training-side cascade predictor for sample filtering.
 
 Counterpart of ``cascadeclassifier_tpu/train/predictor.py::
-CascadePredictor`` for stump cascades: CvCascadeClassifier::predict →
+CascadePredictor``: CvCascadeClassifier::predict →
 CvCascadeBoost::predict (cascadeclassifier.cpp:297-306, boost.cpp:461-477)
 with the training evaluator's feature values, ``val <= thr`` stumps (Haar)
 or the subset bit of the code (LBP), leaves summed in f64 and a stage
 rejecting at ``sum < threshold − 1e-5``.
 
-``predict_batch`` filters positives; ``predict_levels`` is the dense
-miner: for each (image, scale) level it crops the window grid from the
-level (resized on the device from its source for lazy levels), takes
-every window's integrals and the corner product with the used features
-(Haar: upright plus tilted, then the division by the norm factor; LBP:
-the 9 cell sums, then the 8 compares) and the stump walk, one fetch per
-superbatch. The JAX package's pow2 and ladder padding and its compile
-caches bound XLA compiles; the masks do not depend on them and they are
-not ported. Deep-tree and HOG cascades (its per-window gather path)
-raise NotImplementedError.
+``predict_batch`` filters positives; ``predict_levels`` is the miner:
+for each (image, scale) level it crops the window grid from the level
+(resized on the device from its source for lazy levels). The dispatch is
+the JAX package's:
+
+- every tree a stump and one value a feature (Haar, LBP): the dense
+  path, every window's integrals and the corner product with the used
+  features (Haar: upright plus tilted, then the division by the norm
+  factor; LBP: the 9 cell sums, then the 8 compares) and ``stump_walk``;
+- every tree a stump and 36 values a feature (HOG): the evaluator's
+  ``set_samples`` on the windows, ``values_for_vars`` and ``stump_walk``;
+- any tree deeper than a stump: the same values and ``tree_walk``, whose
+  stage sums start from 0 and add each tree's leaf in tree order (the
+  JAX package's host walk, predictor.py:790-819), a rounding that differs
+  from stump_walk's prefix differences.
+
+One fetch per superbatch. The JAX package's pow2 and ladder padding and
+its compile caches bound XLA compiles; the masks do not depend on them
+and they are not ported.
 """
 
 from __future__ import annotations
@@ -56,6 +65,45 @@ def stump_walk(vals, ti, tt, tl, tr, ts, bs, be, sthr):
     return ~rej.any(dim=0)
 
 
+def tree_walk(vals, fpos, thr, sub, left, right, leaves, roots, depth, bounds, sthr):
+    """Cascade walk of trees of any depth (boost.cpp:461-477, the JAX
+    package's host walk): vals (K, m) feature values (int32 codes for a
+    categorical cascade); the nodes of every tree in one table: value row
+    fpos, threshold thr (f32) or subset sub (nodes, 8) int32, children
+    left/right (>= 0 a node, -(leaf) - 1 a leaf of ``leaves``); roots (T,)
+    each tree's root; depth the longest root-to-leaf path; stage s owns
+    trees bounds[s]:bounds[s + 1] with threshold sthr[s] (floats). Every
+    tree walks every window at once, ``depth`` steps; the stage sum starts
+    from 0 and adds each tree's leaf (f32 → f64) in tree order. →
+    (m,) bool accepts."""
+    m = vals.shape[1]
+    cols = torch.arange(m, device=vals.device)
+    cur = roots[:, None].expand(roots.shape[0], m)
+    for _ in range(depth):
+        node = cur.clamp(min=0)
+        v = vals[fpos[node], cols]
+        if sub is None:
+            gl = v <= thr[node]
+        else:
+            gl = ((sub[node, (v >> 5).long()] >> (v & 31)) & 1) != 0
+        cur = torch.where(cur >= 0, torch.where(gl, left[node], right[node]), cur)
+    leaf = leaves[-cur - 1].to(torch.float64)
+    ok = torch.ones(m, dtype=torch.bool, device=vals.device)
+    for s, thr_s in enumerate(sthr):
+        acc = torch.zeros(m, dtype=torch.float64, device=vals.device)
+        for t in range(bounds[s], bounds[s + 1]):
+            acc = acc + leaf[t]
+        ok &= ~(acc < thr_s - CV_THRESHOLD_EPS)
+    return ok
+
+
+def _tree_depth(tree, ni=0) -> int:
+    d = 0
+    for c in (int(tree.left[ni]), int(tree.right[ni])):
+        d = max(d, _tree_depth(tree, c) if c > 0 else 0)
+    return d + 1
+
+
 class CascadePredictor:
     """Accept/reject of the current (partial) cascade on batches."""
 
@@ -67,18 +115,20 @@ class CascadePredictor:
         self._make_ev = evaluator_factory
         self.stages = list(stages or [])
         self._src_cache = {}
+        self._walk_key = self._walk = None
 
     def _used_vars(self):
         return sorted({int(v) for s in self.stages for t in s.trees for v in t.feature_idx})
 
+    def _all_stumps(self) -> bool:
+        return all(t.num_nodes == 1 for s in self.stages for t in s.trees)
+
     def _tables(self, used, device, categorical: bool):
-        """Per-tree tensors for stump_walk."""
+        """Per-tree tensors for stump_walk (every tree a stump)."""
         pos = {v: i for i, v in enumerate(used)}
         ti, tt, tl, tr, ts, bounds, sthr = [], [], [], [], [], [0], []
         for stage in self.stages:
             for tree in stage.trees:
-                if tree.num_nodes != 1:
-                    raise NotImplementedError("the port's predictor walks stump cascades only")
                 ti.append(pos[int(tree.feature_idx[0])])
                 if categorical:
                     ts.append(np.asarray(tree.subsets[0], np.int32))
@@ -97,18 +147,71 @@ class CascadePredictor:
                 t(ts, np.int32) if categorical else None,
                 t(bounds[:-1], np.int64), t(bounds[1:], np.int64), t(sthr, np.float64))
 
+    def _node_tables(self, used, device, categorical: bool):
+        """The node table of every tree for tree_walk."""
+        pos = {v: i for i, v in enumerate(used)}
+        fpos, thr, sub, left, right, leaves, roots, bounds, sthr = ([] for _ in range(9))
+        bounds.append(0)
+        depth = 0
+        for stage in self.stages:
+            for tree in stage.trees:
+                n0, l0 = len(fpos), len(leaves)
+                roots.append(n0)
+                depth = max(depth, _tree_depth(tree))
+                for ni in range(tree.num_nodes):
+                    fpos.append(pos[int(tree.feature_idx[ni])])
+                    if categorical:
+                        sub.append(np.asarray(tree.subsets[ni], np.int32))
+                        thr.append(0.0)
+                    else:
+                        thr.append(tree.threshold[ni])
+                    for out, c in ((left, int(tree.left[ni])), (right, int(tree.right[ni]))):
+                        out.append(n0 + c if c > 0 else -(l0 - c) - 1)
+                leaves.extend(np.asarray(tree.leaf_values, np.float32))
+            bounds.append(len(roots))
+            sthr.append(float(stage.threshold))
+
+        def t(a, dtype):
+            return torch.as_tensor(np.asarray(a, dtype), device=device)
+
+        return (t(fpos, np.int64), t(thr, np.float32), t(sub, np.int32) if categorical else None,
+                t(left, np.int64), t(right, np.int64), t(leaves, np.float32), t(roots, np.int64),
+                depth, bounds, sthr)
+
+    def _walk_of(self, ev):
+        """(the used features, values (K, m) → (m,) accepts): stump_walk
+        when every tree is a stump, tree_walk otherwise; the tables are
+        built once for a given set of stages."""
+        key = (len(self.stages), sum(len(s.trees) for s in self.stages), ev.device)
+        if self._walk_key != key:
+            used, cat = self._used_vars(), ev.maxCatCount > 0
+            if self._all_stumps():
+                tables = self._tables(used, ev.device, cat)
+                self._walk = (used, lambda vals: stump_walk(vals, *tables))
+            else:
+                tables = self._node_tables(used, ev.device, cat)
+                self._walk = (used, lambda vals: tree_walk(vals, *tables))
+            self._walk_key = key
+        return self._walk
+
+    def _predict_windows(self, ev, used, walk, windows):
+        """(m, h, w) uint8 windows on the device → (m,) bool on the device:
+        the evaluator's values of the used features, then the walk."""
+        ev.set_samples(windows)
+        return walk(ev.values_for_vars(used))
+
+    def predict_device(self, samples):
+        """samples: (m, h, w) uint8 → (m,) bool on the evaluator's device,
+        True when every stage accepts."""
+        ev = self._make_ev()
+        if not self.stages or samples.shape[0] == 0:
+            return torch.ones(samples.shape[0], dtype=torch.bool, device=ev.device)
+        return self._predict_windows(ev, *self._walk_of(ev), samples)
+
     def predict_batch(self, samples) -> np.ndarray:
         """samples: (m, h, w) uint8 → (m,) bool, True when every stage
         accepts (1 == the reference's predict)."""
-        m = samples.shape[0]
-        if not self.stages or m == 0:
-            return np.ones(m, bool)
-        ev = self._make_ev()
-        used = self._used_vars()
-        ev.set_samples(samples)
-        vals = ev.values_for_vars(used)
-        tables = self._tables(used, ev.device, ev.maxCatCount > 0)
-        return stump_walk(vals, *tables).cpu().numpy()
+        return self.predict_device(samples).cpu().numpy()
 
     def _source(self, lvl, device):
         key = lvl.src_id
@@ -149,25 +252,28 @@ class CascadePredictor:
             return [np.ones(len(lv[1]), bool) for lv in levels]
         ev = self._make_ev()
         dev = ev.device
-        used = self._used_vars()
+        used, walk = self._walk_of(ev)
         sel = torch.as_tensor(used, device=dev)
-        if ev.maxCatCount > 0:
+        if not self._all_stumps() or getattr(ev, "featSize", 1) != 1:
+            # deep-tree and HOG cascades: the evaluator on the windows
+            def predict(win):
+                return self._predict_windows(ev, used, walk, win)
+        elif ev.maxCatCount > 0:
             m_cells = ev.cell_matrix(sel)
 
-            def values(win):
-                return ev.codes(m_cells, lbp_rows(win))
+            def predict(win):
+                return walk(ev.codes(m_cells, lbp_rows(win)))
         else:
             m_up, m_tilt = ev.corner_matrices(sel)
 
-            def values(win):
+            def predict(win):
                 rows, nf = haar_rows(win)
                 raw = f32_matmul(m_up, rows.T)
                 if m_tilt is not None:  # up + tilted, then the division
                     t = integral_tilted(win)
                     raw = raw + f32_matmul(m_tilt, t.reshape(t.shape[0], -1).to(torch.float32).T)
-                return divide_nf(raw, nf)
+                return walk(divide_nf(raw, nf))
 
-        tables = self._tables(used, dev, ev.maxCatCount > 0)
         counts = [len(lv[1]) for lv in levels]
         oks = []
         with timed("mine_values"):
@@ -175,7 +281,7 @@ class CascadePredictor:
                     for img, pos, _key in levels if len(pos)]
             wins = torch.cat(wins) if wins else torch.zeros((0, wh, ww), dtype=torch.uint8)
             for c0 in range(0, wins.shape[0], self.CHUNK_WINDOWS):
-                oks.append(stump_walk(values(wins[c0:c0 + self.CHUNK_WINDOWS]), *tables))
+                oks.append(predict(wins[c0:c0 + self.CHUNK_WINDOWS]))
         with timed("mine_fetch"):
             ok = torch.cat(oks).cpu().numpy() if oks else np.zeros(0, bool)
         out, off = [], 0

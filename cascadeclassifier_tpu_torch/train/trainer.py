@@ -16,10 +16,10 @@ with the same stdout transcript. Replicates the reference training loop
   - final save in the modern cascade.xml format with featureMap compaction
     (cascadeclassifier.cpp:566-578), optional legacy Haar format
 
-Ported: Haar (BASIC, CORE, ALL) and LBP features, DAB, RAB, LB and GAB
-stumps. ``load`` reads any checkpoint; ``train`` raises
-NotImplementedError for HOG features, max_depth > 1 and a mesh. The
-trainer runs on ``device`` ("cuda" unless the caller asks for the CPU).
+Ported: Haar (BASIC, CORE, ALL), LBP and HOG features, DAB, RAB, LB and
+GAB weak trees of any depth. ``load`` reads any checkpoint; a mesh raises
+NotImplementedError. The trainer runs on ``device`` ("cuda" unless the
+caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -34,9 +34,11 @@ from cascadeclassifier_tpu_torch.data.negreader import NegReader
 from cascadeclassifier_tpu_torch.data.vec import PosReader
 from cascadeclassifier_tpu_torch.models.model import (
     FEATURE_HAAR,
+    FEATURE_HOG,
     FEATURE_LBP,
     CascadeModel,
     HaarFeature,
+    HOGFeature,
     LBPFeature,
 )
 from cascadeclassifier_tpu_torch.models.xml_io import (
@@ -47,7 +49,7 @@ from cascadeclassifier_tpu_torch.models.xml_io import (
     write_params_xml,
     write_stage_xml,
 )
-from cascadeclassifier_tpu_torch.ops.features import haar_mode_id
+from cascadeclassifier_tpu_torch.ops.features import HOG_FEAT_SIZE, haar_mode_id
 from cascadeclassifier_tpu_torch.train.boost import BoostParams, StageTrainer, check_supported
 from cascadeclassifier_tpu_torch.train.evaluators import make_evaluator
 from cascadeclassifier_tpu_torch.train.predictor import CascadePredictor
@@ -92,9 +94,6 @@ class CascadeTrainer:
         self.stages = []  # stages with GLOBAL feature indices
 
     def _check_supported(self):
-        if self.feature_type not in (FEATURE_HAAR, FEATURE_LBP):
-            raise NotImplementedError("the port trains Haar and LBP cascades: the HOG "
-                                      "training evaluator is not ported")
         check_supported(self.boost, self.mesh)
 
     @property
@@ -103,8 +102,7 @@ class CascadeTrainer:
 
     @property
     def evaluator(self):
-        """The training evaluator, built on first use (a checkpoint of an
-        unported feature type still loads)."""
+        """The training evaluator, built on first use."""
         if self._evaluator is None:
             self._evaluator = make_evaluator(self.feature_type, self.win_w, self.win_h,
                                              self.haar_mode, device=self.device)
@@ -242,7 +240,7 @@ class CascadeTrainer:
             max_depth=self.boost.max_depth,
             max_weak_count=self.boost.weak_count,
             max_cat_count=self.max_cat_count,
-            feat_size=1,
+            feat_size=HOG_FEAT_SIZE if self.feature_type == FEATURE_HOG else 1,
             haar_mode={0: "BASIC", 1: "CORE", 2: "ALL"}[self.haar_mode]
             if self.feature_type == FEATURE_HAAR
             else "BASIC",
@@ -275,6 +273,9 @@ class CascadeTrainer:
         cat = self.evaluator.catalog
         if self.feature_type == FEATURE_LBP:
             return LBPFeature(rect=tuple(int(v) for v in cat.rects[var]))
+        if self.feature_type == FEATURE_HOG:
+            f, comp = divmod(var, HOG_FEAT_SIZE)
+            return HOGFeature(rect=tuple(int(v) for v in cat.rects[f]), component=comp)
         rects = []
         for r in range(3):
             if cat.weights[var, r] == 0.0:

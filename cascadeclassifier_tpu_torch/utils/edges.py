@@ -28,6 +28,12 @@ sample counts around its tree's levels (31/32/33, 1 023/1 024/1 025,
 window of one code, a feature of 4 codes, a feature all in one category
 and a feature of skewed codes; and skewed blocks of one feature less than,
 as many as and one more than one launch's warps (``cat_split_edge_cases``).
+The HOG kernels (``csrc/hog_hist.cu``, ``csrc/hog_eval.cu``) take windows
+of sides around their runs of 16 (``HOG_SIDES``): a flat window, a
+vertical and a horizontal step edge, ±255 gradients at each border, a
+window of noise, and, for each of the 18 bin edges of the angle (9 mod π),
+a window of 3x3 stencils whose centre gradients lie on and beside the edge
+at three radii (``hog_edge_cases``).
 ``chip_smoke.py`` and the card's tests run the same cases.
 """
 
@@ -58,6 +64,8 @@ from cascadeclassifier_tpu_torch.detect.records import TILE_H, TILE_W
 from cascadeclassifier_tpu_torch.detect.stage import stage
 from cascadeclassifier_tpu_torch.detect.tilted import CHUNK_ROWS, STRIP_COLS, tilted
 from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml
+from cascadeclassifier_tpu_torch.ops.features import N_BINS, hog_catalog
+from cascadeclassifier_tpu_torch.ops.hog import hog_integral_histogram, hog_responses
 from cascadeclassifier_tpu_torch.train.cat_split import (
     categorical_class_split,
     categorical_split,
@@ -410,4 +418,60 @@ def cat_split_edge_mismatches(device):
             n += 1
             if not all(torch.equal(g, r) for g, r in zip(got, want)):
                 bad.append(f"{label}, {policy}")
+    return n, bad
+
+
+HOG_SIDES = ((24, 24), (32, 32), (16, 17), (33, 20))  # (h, w): around the runs of 16
+
+
+def _stencils(h: int, w: int, pairs) -> np.ndarray:
+    """A zero window with one 3x3 stencil per (gx, gy) pair, 3 pixels
+    apart (no two overlap): the stencil's centre has that gradient."""
+    x = np.zeros((h, w), np.uint8)
+    centres = [(y, c) for y in range(1, h - 1, 3) for c in range(1, w - 1, 3)]
+    for (y, c), (gx, gy) in zip(centres, itertools.cycle(pairs)):
+        a, b = max(0, -gx), max(0, -gy)
+        x[y, c - 1], x[y, c + 1], x[y - 1, c], x[y + 1, c] = a, a + gx, b, b + gy
+    return x
+
+
+def hog_edge_cases(h: int, w: int):
+    """(label, (k, h, w) uint8 windows) of the HOG kernels' edge cases."""
+    flat = np.full((h, w), 128, np.uint8)
+    vstep, hstep = np.zeros((h, w), np.uint8), np.zeros((h, w), np.uint8)
+    vstep[:, w // 2:] = 255
+    hstep[h // 2:] = 255
+    borders = np.zeros((4, h, w), np.uint8)
+    borders[0, :, 0] = borders[1, :, -1] = borders[2, 0] = borders[3, -1] = 255
+    yield "flat and step edges", np.stack([flat, vstep, hstep, 255 - vstep])
+    yield "±255 at the borders", np.concatenate([borders, 255 - borders])
+    yield "noise", np.random.default_rng(h * 100 + w).integers(0, 256, (8, h, w), dtype=np.uint8)
+    for j in range(2 * N_BINS):
+        ang = (j + 0.5) * np.pi / N_BINS
+        pairs = [(int(np.rint(r * np.cos(ang))) + dx, int(np.rint(r * np.sin(ang))) + dy)
+                 for r in (9, 120, 254) for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
+        pairs = [(max(-255, min(255, gx)), max(-255, min(255, gy))) for gx, gy in pairs]
+        yield f"bin edge {j}", _stencils(h, w, pairs)[None]
+
+
+def hog_edge_mismatches(device):
+    """hog_hist and hog_eval (every variable of the window's catalog) over
+    hog_edge_cases() at HOG_SIDES against their plain versions on the
+    same device → (cases run, descriptions of the cases that differ)."""
+    n, bad = 0, []
+    for h, w in HOG_SIDES:
+        cat = hog_catalog(w, h)
+        cells = torch.from_numpy(cat.cell_corner_offsets()).to(device)
+        ids = torch.arange(cat.var_count, device=device)
+        for label, x in hog_edge_cases(h, w):
+            xd = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+            hist, norm = hog_integral_histogram(xd)
+            want_h, want_n = hog_integral_histogram(xd, impl="ref")
+            flat = (hist.reshape(len(x), N_BINS, -1), norm.reshape(len(x), -1))
+            got = hog_responses(*flat, cells, ids)
+            want = hog_responses(*flat, cells, ids, impl="ref")
+            n += 1
+            if not (torch.equal(hist, want_h) and torch.equal(norm, want_n)
+                    and torch.equal(got, want)):
+                bad.append(f"{h}x{w} {label}")
     return n, bad

@@ -8,7 +8,7 @@ TorchDetector on cuda:0, on 1920x1080 synthetic frames at scaleFactor
 .xml, 22 upright stages, engine "fused") on the plain vertical stack
 (pack_band=False):
 
-  (a) build     compile the CUDA kernels from csrc/ (ten sources), one nvcc per
+  (a) build     compile the CUDA kernels from csrc/ (twelve sources), one nvcc per
                 source, all started together (seconds)
   (b) integral  kernel integral vs its plain twin on frame 0's canvas, as
                 uint8 (the fused engine's input) and as int32 (the same
@@ -173,6 +173,31 @@ LBP and the other boost types, on (s)'s data:
                 Check 4: a DAB stage at 200 + 400 samples on the card and
                 on the CPU, stage0.xml byte-identical,
                 split_scan_class_gather launched
+
+Deep weak trees and HOG, on (s)'s data:
+
+  (u) deep      Check 1: the first 3 stages of a 20-stage Haar BASIC GAB
+                run at max_depth 2 (weak_count 100, minHitRate 0.995,
+                maxFalseAlarm 0.5, 1000 + 2000 samples) on the card, each
+                stage's first mining superbatch (the node walk) equal to
+                the CPU's, per-stage times by phase, split_scan_gather's
+                launches a tree. Check 2: stage 0 at depth 2 on the card
+                and on the CPU, stage0.xml byte-identical, for Haar GAB
+                and DAB at 200 + 400 samples and LBP GAB at 1000 + 2000:
+                split_scan_gather, split_scan_class_gather and cat_split
+                each run under node masks that are no tree root's
+  (v) hog       Check 1: hog_hist and hog_eval (every variable) on stage
+                0's 3072 samples at 24x24 and resized to 32x32 (cells of
+                16), and on utils/edges.py's HOG windows (flat, step edges,
+                ±255 at the borders, the bin edges), bit for bit equal to
+                their plain versions (hog_hist to the CPU's too). Check 2:
+                the first 3 stages of a 20-stage 24x24 HOG GAB run on the
+                card with the checks of (u), and stage 0 card against CPU
+                byte for byte. Check 3: the trained cascade detects on
+                synth_frame(0) at 1080p (sf 1.1, minNeighbors 3) on the
+                card, its raw candidates and rects equal to the
+                plain-version path's on the card; windows, ms a frame and
+                the phase split (every scope, and the time outside them)
 
 and last, per kernel at its path's shapes: time against its twin, the
 least time the card could take (bytes over 3.35 TB/s or operations over
@@ -853,6 +878,12 @@ def main():
     vec, bg = training_phase(dev, timed, work, errs, launches, timed_extra)
     boost_types_phase(dev, vec, bg, timed, work, errs, launches, timed_extra)
 
+    # ------------------------------------------------------------------
+    # (u) deep weak trees, (v) HOG training and detection
+    launch_extra = {}
+    deep_phase(dev, vec, bg, launches, launch_extra)
+    hog_phase(dev, vec, bg, timed, work, errs, launches, launch_extra)
+
     meta = {
         "integral": ("cascadeclassifier_tpu_torch/csrc/integral.cu",
                      "cascadeclassifier_tpu/detect/pallas_integral.py:50"),
@@ -900,6 +931,12 @@ def main():
                                     "cascadeclassifier_tpu/train/boost.py:214 (XLA "
                                     "_ordered_class_split_sorted, not Pallas); "
                                     "cascadeclassifier_tpu/train/boost.py:258"),
+        "hog_hist": ("cascadeclassifier_tpu_torch/csrc/hog_hist.cu",
+                     "cascadeclassifier_tpu/ops/features.py:537 (XLA hog_integral_histogram, "
+                     "not Pallas)"),
+        "hog_eval": ("cascadeclassifier_tpu_torch/csrc/hog_eval.cu",
+                     "cascadeclassifier_tpu/train/evaluators.py:296-310 (XLA einsum and dot, "
+                     "not Pallas); cascadeclassifier_tpu/ops/features.py:578 (XLA eval_hog)"),
     })
     kernels = []
     for name, (fk, fr, flib, plain_reps) in timed.items():
@@ -913,6 +950,7 @@ def main():
         if isinstance(n_launch, tuple):  # (launches, frames) of a newer path
             extra = {"launches_per_frame": n_launch[0] / n_launch[1]}
             n_launch = n_launch[0]
+        extra.update(launch_extra.get(name, {}))
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": n_launch,
@@ -922,7 +960,8 @@ def main():
         print(f"kernel {name}: {ms:.4f} ms, plain twin {plain_ms:.3f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), library call "
               f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}"
-              + "".join(f", {k} {v:.4f}" for k, v in extra.items()), flush=True)
+              + "".join(f", {k} {v:.4f}" if isinstance(v, float) else f", {k} {v}"
+                        for k, v in extra.items()), flush=True)
     syncs = {}
     for name, d in (("frontal face", det), ("upper body", det_b),
                     ("frontal face shelf-packed", shelf[False]),
@@ -948,7 +987,9 @@ class ThreeStages(Exception):
 def checked_trainer(tag: str, mismatches: list, **kw):
     """A CascadeTrainer(**kw) that holds each stage's first mining
     superbatch against a CPU trainer's (the count of differing masks goes
-    to mismatches), and stops its run once 3 stages are trained."""
+    to mismatches, the seconds the CPU took to its ``check_s``, which the
+    stage's ``fill_negatives`` includes), and stops its run once 3 stages
+    are trained."""
     from cascadeclassifier_tpu_torch.train.trainer import CascadeTrainer
 
     cpu_kw = {**kw, "device": "cpu"}
@@ -968,8 +1009,10 @@ def checked_trainer(tag: str, mismatches: list, **kw):
                 got = real(levels, ww, wh)
                 if first[0]:
                     first[0] = False
+                    t0 = time.perf_counter()
                     want = type(pred)(lambda: cpu.evaluator, self.stages).predict_levels(
                         levels, ww, wh)
+                    self.check_s.append(time.perf_counter() - t0)
                     mismatches.append(int(sum((g != c).sum() for g, c in zip(got, want))))
                     print(f"({tag}) stage {len(self.stages)}: first mining superbatch, "
                           f"{sum(len(g) for g in got)} windows, {int(sum(g.sum() for g in got))}"
@@ -979,7 +1022,9 @@ def checked_trainer(tag: str, mismatches: list, **kw):
             pred.predict_levels = predict_levels
             return pred
 
-    return Checked(**kw)
+    trainer = Checked(**kw)
+    trainer.check_s = []
+    return trainer
 
 
 def split_library(vs, ws, rs, kept, total_w, total_r):
@@ -1583,8 +1628,321 @@ def boost_types_phase(dev, vec, bg, timed, work, errs, launches, timed_extra):
           f"(split_scan_class_gather launched {launches['split_scan_class_gather']} times) and "
           f"on the CPU: stage0.xml byte-identical ({len(outs['cpu'])} bytes); "
           f"{time.perf_counter() - t5:.1f} s", flush=True)
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     print(f"(t) phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def trained_stage_times(tag: str, trainer, n: int):
+    """Print each of the first n stages' trees, depth and phase times."""
+    from cascadeclassifier_tpu_torch.train.predictor import _tree_depth
+    from cascadeclassifier_tpu_torch.utils.profiling import timings
+
+    tm = timings()
+    for si in range(n):
+        per_stage = {k: tm[k][si] for k in ("fill_positives", "fill_negatives", "set_samples",
+                                            "train_stage")}
+        trees = trainer.stages[si].trees
+        print(f"({tag}) stage {si}: {len(trees)} trees of depth up to "
+              f"{max(_tree_depth(t) for t in trees)}, {sum(per_stage.values()):.2f} s (" +
+              ", ".join(f"{k} {v:.2f}" for k, v in per_stage.items()) +
+              f"; fill_negatives holds {trainer.check_s[si]:.2f} s of the CPU's check)",
+              flush=True)
+    return tm
+
+
+def card_and_cpu_stage0(tag: str, dev, vec, bg, n_pos: int, n_neg: int, **kw):
+    """Stage 0 trained on the card and on the CPU: (stage0.xml bytes, the
+    card's kernel launches)."""
+    from cascadeclassifier_tpu_torch import _build
+    from cascadeclassifier_tpu_torch.train.trainer import CascadeTrainer
+
+    outs = {}
+    for where in (dev, "cpu"):
+        d = os.path.join(TRAIN_DIR, f"{tag}_{torch.device(where).type}")
+        _build.LAUNCHES.clear()
+        CascadeTrainer(device=where, **kw).train(d, vec, bg, num_pos=n_pos, num_neg=n_neg,
+                                                 num_stages=1, verbose=False)
+        if where == dev:
+            torch.cuda.synchronize()
+            card_launches = dict(_build.LAUNCHES)
+        with open(os.path.join(d, "stage0.xml"), "rb") as f:
+            outs[where] = f.read()
+    check(outs[dev] == outs["cpu"], f"({tag}) stage0.xml trained on the card differs from "
+                                    f"the CPU's")
+    return outs["cpu"], card_launches
+
+
+def deep_phase(dev, vec, bg, launches, launch_extra):
+    """(u): weak trees of depth 2 (-maxDepth 2) on (s)'s data: the three
+    split kernels under node masks that are no tree root's; see the module
+    docstring."""
+    from cascadeclassifier_tpu_torch import _build
+    from cascadeclassifier_tpu_torch.models.model import BOOST_DAB, FEATURE_LBP
+    from cascadeclassifier_tpu_torch.train.boost import BoostParams
+    from cascadeclassifier_tpu_torch.utils.profiling import reset_timings
+
+    t0 = time.perf_counter()
+    mismatches = []
+    trainer = checked_trainer("u", mismatches, boost=BoostParams(max_depth=2), device=dev)
+    reset_timings()
+    _build.LAUNCHES.clear()
+    try:
+        trainer.train(os.path.join(TRAIN_DIR, "deep"), vec, bg, num_pos=1000, num_neg=2000,
+                      num_stages=20)
+    except ThreeStages:
+        pass
+    torch.cuda.synchronize()
+    n_gather = _build.LAUNCHES.get("split_scan_gather", 0)
+    check(n_gather > 0, "kernel split_scan_gather was not launched on the depth-2 path")
+    check(len(trainer.stages) == 3, f"the depth-2 trainer trained {len(trainer.stages)} stages")
+    check(all(m == 0 for m in mismatches), f"depth-2 accept masks differ from the CPU's: "
+                                           f"{mismatches}")
+    check(any(t.num_nodes >= 2 for st in trainer.stages for t in st.trees),
+          "no tree of the depth-2 run split below its root")
+    tm = trained_stage_times("u", trainer, 3)
+    trees = [t for st in trainer.stages for t in st.trees]
+    splits = sum(t.num_nodes for t in trees)
+    launch_extra["split_scan_gather"] = {"launches_depth2": n_gather,
+                                         "launches_depth2_per_tree": n_gather / len(trees)}
+    print(f"(u) check 1: 3 stages of a 20-stage Haar BASIC GAB run at max_depth 2 (weak_count "
+          f"100, minHitRate 0.995, maxFalseAlarm 0.5, 1000 + 2000 samples): {len(trees)} trees, "
+          f"{splits} split nodes; split_scan_gather launched {n_gather} times "
+          f"({n_gather / len(trees):.1f} a tree); train_stage "
+          f"{sum(tm['train_stage']) / len(trees):.4f} s a tree; each first mining superbatch "
+          f"equal to the CPU's; {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t1 = time.perf_counter()
+    runs = (("haar_d2", "split_scan_gather", 200, 400, dict(boost=BoostParams(max_depth=2))),
+            ("dab_d2", "split_scan_class_gather", 200, 400,
+             dict(boost=BoostParams(boost_type=BOOST_DAB, max_depth=2))),
+            ("lbp_d2", "cat_split", 1000, 2000,
+             dict(feature_type=FEATURE_LBP, boost=BoostParams(max_depth=2))))
+    for tag, kernel, n_pos, n_neg, kw in runs:
+        t2 = time.perf_counter()
+        xml, card = card_and_cpu_stage0(tag, dev, vec, bg, n_pos, n_neg, **kw)
+        n_launch = card.get(kernel, 0)
+        check(n_launch > 0, f"({tag}) kernel {kernel} was not launched")
+        n_trees = xml.count(b"<internalNodes>")
+        if kernel != "split_scan_gather":
+            launch_extra[kernel] = {"launches_depth2": n_launch,
+                                    "launches_depth2_per_tree": n_launch / max(n_trees, 1)}
+        print(f"(u) check 2: {tag} stage 0 at {n_pos} + {n_neg} samples on the card and on the "
+              f"CPU: stage0.xml byte-identical ({len(xml)} bytes, {n_trees} trees, "
+              f"{kernel} launched {n_launch} times); "
+              f"{time.perf_counter() - t2:.1f} s", flush=True)
+    print(f"(u) phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def hog_library(x):
+    """The integral histograms as library calls (torch.atan2, a one-hot,
+    two torch.cumsum), for its time only: neither the root nor the sums
+    are in the JAX package's order."""
+    xf = x.to(torch.float32)
+    dx = torch.nn.functional.pad(xf[:, None], (1, 1, 0, 0), mode="replicate")[:, 0]
+    dy = torch.nn.functional.pad(xf[:, None], (0, 0, 1, 1), mode="replicate")[:, 0]
+    gx, gy = dx[:, :, 2:] - dx[:, :, :-2], dy[:, 2:] - dy[:, :-2]
+    mag = torch.sqrt(gx * gx + gy * gy)
+    ang = torch.atan2(gy, gx)
+    ang = torch.where(ang < 0, ang + 2 * np.pi, ang)
+    b = torch.remainder(torch.floor(ang * (9 / np.pi) - 0.5).long(), 9)
+    per_bin = torch.nn.functional.one_hot(b, 9).permute(0, 3, 1, 2) * mag[:, None]
+
+    def ii(v):
+        return torch.nn.functional.pad(torch.cumsum(torch.cumsum(v, -1), -2), (1, 0, 1, 0))
+
+    return ii(per_bin), ii(mag)
+
+
+def hog_eval_library(hist, norm, m_cells, m_norm, n):
+    """The responses as the JAX evaluator forms them: the ±1 corner
+    matrices times the flattened histograms (f32 torch.matmul, TF32 off),
+    the division and the select; for its time only."""
+    cs = m_cells @ hist.reshape(n * 9, -1).t()  # (4F, 9N)
+    nm = m_norm @ norm.t()  # (F, N)
+    cs = cs.view(m_norm.shape[0], 4, n, 9)
+    return torch.where(cs > 1e-3, cs / (nm[:, None, :, None] + 1e-3), 0.0)
+
+
+def hog_matrices(cells, p: int, dev):
+    """(cell corner matrix (4F, P), norm corner matrix (F, P)) f32 ±1."""
+    sign = torch.tensor([1.0, -1.0, -1.0, 1.0], device=dev)
+    f = cells.shape[0]
+    m_cells = torch.zeros((f * 4, p), device=dev)
+    m_cells.index_put_((torch.arange(f * 4, device=dev).repeat_interleave(4),
+                        cells.reshape(-1).long()), sign.repeat(f * 4), accumulate=True)
+    diag = torch.arange(4, device=dev)
+    m_norm = torch.zeros((f, p), device=dev)
+    m_norm.index_put_((torch.arange(f, device=dev).repeat_interleave(4),
+                       cells[:, diag, diag].reshape(-1).long()), sign.repeat(f), accumulate=True)
+    return m_cells, m_norm
+
+
+def hog_eval_sector_bytes(cells, ids, n: int, p: int) -> int:
+    """Bytes of the 32-byte sectors of hist (n, 9, p) and norm (n, p), f32,
+    each from an aligned base, that hold a corner hog_eval reads for the
+    variables ids: the histogram corners of each variable's cell and bin,
+    the norm's block corners."""
+    cells, ids = cells.cpu().numpy().astype(np.int64), ids.cpu().numpy()
+    f, cell, b = ids // 36, ids % 36 // 9, ids % 9
+    hist_pts = np.unique(b[:, None] * p + cells[f, cell], axis=None)  # plane · p + offset
+    diag = np.arange(4)
+    norm_pts = np.unique(cells[np.unique(f)][:, diag, diag])
+    sample = np.arange(n, dtype=np.int64)[:, None]
+    hist_sec = np.unique((sample * 9 * p + hist_pts[None]) * 4 // 32)
+    norm_sec = np.unique((sample * p + norm_pts[None]) * 4 // 32)
+    return (len(hist_sec) + len(norm_sec)) * 32
+
+
+def hog_phase(dev, vec, bg, timed, work, errs, launches, launch_extra):
+    """(v): HOG on (s)'s data: the two kernels on stage 0's samples and the
+    edge windows, 3 stages of HOG training, detection with the trained
+    cascade at 1080p; see the module docstring."""
+    import shutil
+
+    from cascadeclassifier_tpu_torch import _build
+    from cascadeclassifier_tpu_torch.data.negreader import NegReader
+    from cascadeclassifier_tpu_torch.data.vec import PosReader
+    from cascadeclassifier_tpu_torch.detect.grouping import clip_rects, group_rectangles
+    from cascadeclassifier_tpu_torch.detect.hog_detector import HOGDetector
+    from cascadeclassifier_tpu_torch.models.model import FEATURE_HOG
+    from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml, write_cascade_xml
+    from cascadeclassifier_tpu_torch.ops.features import hog_catalog
+    from cascadeclassifier_tpu_torch.ops.hog import hog_integral_histogram, hog_responses
+    from cascadeclassifier_tpu_torch.train.trainer import CascadeTrainer
+    from cascadeclassifier_tpu_torch.utils.edges import hog_edge_mismatches
+    from cascadeclassifier_tpu_torch.utils.profiling import reset_timings, timings
+    from cascadeclassifier_tpu_torch.utils.synth import synth_frame
+
+    t0 = time.perf_counter()
+    tr = CascadeTrainer(feature_type=FEATURE_HOG, device=dev)
+    pos = tr._fill_positives(PosReader(vec, 24, 24), 1000, [0])
+    neg = tr._fill_negatives(NegReader(bg, 24, 24, lazy=True), 2000, 0.0, [0])
+    s24 = torch.from_numpy(np.concatenate([pos, neg, np.zeros((72, 24, 24), np.uint8)])).to(dev)
+    s32 = torch.nn.functional.interpolate(s24[:, None].float(), size=(32, 32), mode="bilinear",
+                                          align_corners=False).round().clamp(0, 255)
+    s32 = s32[:, 0].to(torch.uint8).contiguous()
+    worst = {"hog_hist": 0.0, "hog_eval": 0.0}
+    inputs = {}
+    for side, x in ((24, s24), (32, s32)):
+        n = x.shape[0]
+        (h, nm), (h_t, nm_t) = hog_integral_histogram(x), hog_integral_histogram(x, impl="ref")
+        check(torch.equal(h, h_t) and torch.equal(nm, nm_t),
+              f"hog_hist != its plain version at {side}x{side}")
+        cat = hog_catalog(side, side)
+        cells = torch.from_numpy(cat.cell_corner_offsets()).to(dev)
+        ids = torch.arange(cat.var_count, device=dev)
+        flat = (h.reshape(n, 9, -1), nm.reshape(n, -1))
+        r, r_t = hog_responses(*flat, cells, ids), hog_responses(*flat, cells, ids, impl="ref")
+        check(torch.equal(r, r_t), f"hog_eval != its plain version at {side}x{side}")
+        worst["hog_hist"] = max(worst["hog_hist"], float((h - h_t).abs().max()),
+                                float((nm - nm_t).abs().max()))
+        worst["hog_eval"] = max(worst["hog_eval"], float((r - r_t).abs().max()))
+        h_c, nm_c = hog_integral_histogram(x.cpu())
+        check(torch.equal(h.cpu(), h_c) and torch.equal(nm.cpu(), nm_c),
+              f"hog_hist != the plain version on the CPU at {side}x{side}")
+        inputs[side] = (x, flat, cells, ids, cat)
+    errs.update(worst)
+    n_edge, bad = hog_edge_mismatches(dev)
+    check(not bad, f"HOG kernels differ from their plain versions on edge windows: {bad}")
+    print(f"(v) check 1: hog_hist and hog_eval (every variable) on stage 0's 3072 samples at "
+          f"24x24 (9 features) and resized to 32x32 (36 features, cells of 16), and on {n_edge}"
+          f" edge-window sets (utils/edges.py::hog_edge_cases), bit for bit equal to their "
+          f"plain versions on the card (hog_hist also to the CPU's); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    x, flat, cells, ids, cat = inputs[24]
+    n = x.shape[0]
+    m_cells, m_norm = hog_matrices(cells, flat[1].shape[1], dev)
+    timed["hog_hist"] = (lambda: hog_integral_histogram(x),
+                         lambda: hog_integral_histogram(x, impl="ref"),
+                         lambda: hog_library(x), 3)
+    timed["hog_eval"] = (lambda: hog_responses(*flat, cells, ids),
+                         lambda: hog_responses(*flat, cells, ids, impl="ref"),
+                         lambda: hog_eval_library(*flat, m_cells, m_norm, n), 3)
+    px, p = 24 * 24, flat[1].shape[1]
+    # hog_hist: the windows and the bin table read once, 10 integrals written;
+    # per pixel 2 subtractions, 2 products, a sum, a root, 10 one-hot selects
+    # and 2 adds a channel (the two scans)
+    work["hog_hist"] = bound(n * px + 511 * 511 + n * 10 * p * 4, n * px * (6 + 10 + 20))
+    # hog_eval: of the histograms and norms only the corners its variables
+    # name, in whole 32-byte sectors; the corner table and ids read once,
+    # the (vars, samples) responses written once; 6 adds, an add, a
+    # division and a compare an output
+    k = int(ids.numel())
+    work["hog_eval"] = bound(hog_eval_sector_bytes(cells, ids, n, p) + cells.numel() * 4
+                             + k * 8 + k * n * 4, k * n * 9)
+
+    # -- check 2: 3 stages of HOG training on the card, first superbatches
+    # against the CPU's, stage 0 byte for byte
+    t2 = time.perf_counter()
+    mismatches = []
+    trainer = checked_trainer("v", mismatches, feature_type=FEATURE_HOG, device=dev)
+    reset_timings()
+    _build.LAUNCHES.clear()
+    full = os.path.join(TRAIN_DIR, "hog")
+    try:
+        trainer.train(full, vec, bg, num_pos=1000, num_neg=2000, num_stages=20)
+    except ThreeStages:
+        pass
+    torch.cuda.synchronize()
+    launches["hog_hist"] = _build.LAUNCHES.get("hog_hist", 0)
+    launches["hog_eval"] = _build.LAUNCHES.get("hog_eval", 0)
+    check(launches["hog_hist"] > 0 and launches["hog_eval"] > 0,
+          f"HOG training launched hog_hist {launches['hog_hist']} and hog_eval "
+          f"{launches['hog_eval']} times")
+    check(len(trainer.stages) == 3, f"the HOG trainer trained {len(trainer.stages)} stages")
+    check(all(m == 0 for m in mismatches), f"HOG accept masks differ from the CPU's: "
+                                           f"{mismatches}")
+    tm = trained_stage_times("v", trainer, 3)
+    n_trees = sum(len(st.trees) for st in trainer.stages)
+    print(f"(v) check 2: 3 stages of a 20-stage HOG run (24x24, 9 features x 36 variables, "
+          f"GAB stumps, 1000 + 2000 samples): {n_trees} trees; hog_hist launched "
+          f"{launches['hog_hist']} times, hog_eval {launches['hog_eval']}; train_stage "
+          f"{sum(tm['train_stage']) / n_trees:.4f} s a tree; each first mining superbatch "
+          f"equal to the CPU's; {time.perf_counter() - t2:.1f} s", flush=True)
+    t3 = time.perf_counter()
+    xml, _ = card_and_cpu_stage0("hog", dev, vec, bg, 1000, 2000, feature_type=FEATURE_HOG)
+    print(f"(v) check 2: HOG stage 0 at 1000 + 2000 samples on the card and on the CPU: "
+          f"stage0.xml byte-identical ({len(xml)} bytes); {time.perf_counter() - t3:.1f} s",
+          flush=True)
+
+    # -- check 3: detection with the trained cascade at 1080p
+    t4 = time.perf_counter()
+    write_cascade_xml(trainer._to_model(), os.path.join(full, "cascade.xml"))
+    model = read_cascade_xml(os.path.join(full, "cascade.xml"))
+    check(model.feat_size == 36 and model.feature_type == FEATURE_HOG and
+          model.num_stages == 3, "the HOG cascade.xml does not read back as 3 HOG stages")
+    frame = synth_frame(0)
+    det = HOGDetector(model, device=dev)
+    det.detect_multi_scale(frame, 1.1, 3)  # warm-up
+    reset_timings()
+    _build.LAUNCHES.clear()
+    t5 = time.perf_counter()
+    rects = det.detect_multi_scale(frame, 1.1, 3)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t5) * 1e3
+    det_launches = dict(_build.LAUNCHES)
+    phases = {k: sum(v) * 1e3 for k, v in timings().items()}
+    phases["outside the scopes"] = ms - sum(phases.values())
+    raw, n_windows = det.raw_windows(frame, 1.1)
+    want_raw, want_windows = HOGDetector(model, device=dev, impl="ref").raw_windows(frame, 1.1)
+    check(n_windows == want_windows and np.array_equal(raw, want_raw),
+          f"HOG detection: the kernels' {len(raw)} raw candidates of {n_windows} windows differ "
+          f"from the plain-version path's {len(want_raw)} of {want_windows}")
+    want = clip_rects(group_rectangles(want_raw, 3), frame.shape[1], frame.shape[0])
+    check(np.array_equal(np.asarray(rects).reshape(-1, 4), np.asarray(want).reshape(-1, 4)),
+          "HOG detection: the kernels' rects differ from the plain-version path's")
+    check(det_launches.get("hog_hist", 0) > 0 and det_launches.get("hog_eval", 0) > 0,
+          "HOG detection did not launch both HOG kernels")
+    launch_extra["hog_hist"] = {"launches_detect_frame": det_launches.get("hog_hist", 0)}
+    launch_extra["hog_eval"] = {"launches_detect_frame": det_launches.get("hog_eval", 0)}
+    print(f"(v) check 3: HOG detection on synth_frame(0) at 1080p, sf 1.1, minNeighbors 3: "
+          f"{n_windows} windows, {len(raw)} raw candidates, {len(rects)} rects, the raw "
+          f"candidates and the rects equal to the plain-version path's; {ms:.1f} ms a frame "
+          f"({gpu_info()}), by phase (device synchronized at each scope's ends): " + ", ".join(
+              f"{k} {v:.1f}" for k, v in sorted(phases.items())) + f" ms; hog_hist launched "
+          f"{det_launches.get('hog_hist', 0)} times, hog_eval {det_launches.get('hog_eval', 0)}"
+          f"; {time.perf_counter() - t4:.1f} s", flush=True)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    print(f"(v) phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def kernel_vs_twin(name: str, run, ctx):

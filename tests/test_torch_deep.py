@@ -3,7 +3,8 @@ package: the packing and its conversion, ``dense_stage_deep`` bit for bit
 in f32 and f64 on haarcascade_frontalface_alt2 (2-node trees) and
 haarcascade_eye_tree_eyeglasses (3-node trees, tilted and upright nodes
 mixed), the node-record mirror, the detector's raw windows through both
-port engines, and depth-2 trees against the OpenCV oracle. Every
+port engines, the tilted depth-2 cascade against the JAX package's fused
+engine, and depth-2 trees against the OpenCV oracle. Every
 comparison is exact (bit for bit, or equal sets of windows)."""
 
 import dataclasses
@@ -215,6 +216,26 @@ def test_deep_tree_parity_with_opencv_oracle(oracle_bin, tmp_path):
         det = TorchDetector(port, device="cpu", engine=engine)
         assert det.packed.kind == "node"
         assert _sorted(det.detect_multi_scale(img, 1.2, 0)) == ref, engine
+
+
+def test_fused_engine_tilted_deep_parity():
+    """Mirrors tests/test_detector.py::test_fused_engine_tilted_deep_parity:
+    eye_tree_eyeglasses cut to 4 stages (tilted and upright nodes, depth-2
+    trees), f32 sums (exact=False), sf 1.2, minNeighbors 0, on blurred
+    noise: the port's detector ("auto" sends the cascade to the stage
+    engine; its fused engine refuses tilted node trees) gives the JAX
+    package's fused and XLA engines' rects."""
+    cv2 = pytest.importorskip("cv2")
+    rng = np.random.default_rng(6)
+    img = cv2.GaussianBlur(rng.integers(0, 256, (120, 160)).astype(np.uint8), (9, 9), 3)
+    jm = truncated(jread_cascade_xml(EYE_TREE), 4)
+    want = _sorted(TPUDetector(jm, exact=False, engine="xla").detect_multi_scale(img, 1.2, 0))
+    fused = TPUDetector(jm, exact=False, engine="fused")
+    assert fused._fused is not None
+    assert _sorted(fused.detect_multi_scale(img, 1.2, 0)) == want and len(want) > 0
+    det = TorchDetector(truncated(read_cascade_xml(EYE_TREE), 4), exact=False, device="cpu")
+    assert det.engine_name == "pallas" and det.packed.kind == "node" and det.packed.has_tilted
+    assert _sorted(det.detect_multi_scale(img, 1.2, 0)) == want
 
 
 def test_tilted_node_corners_point_into_the_tilted_patch(packed):

@@ -18,7 +18,8 @@ from cascadeclassifier_tpu.detect.detector import TPUDetector  # noqa: E402
 from cascadeclassifier_tpu.models.xml_io import (  # noqa: E402
     read_cascade_xml as jread_cascade_xml,
 )
-from cascadeclassifier_tpu_torch.detect.detector import TorchDetector  # noqa: E402
+from cascadeclassifier_tpu_torch.detect.detector import TorchDetector, make_detector  # noqa: E402
+from cascadeclassifier_tpu_torch.detect.hog_detector import HOGDetector  # noqa: E402
 from cascadeclassifier_tpu_torch.models.model import FEATURE_HOG  # noqa: E402
 from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml  # noqa: E402
 
@@ -128,14 +129,20 @@ def test_max_det_raises_as_the_jax_detector_does():
 
 def test_detector_refuses_what_is_not_ported():
     """exact=True, the default as in the JAX package, builds; a HOG cascade
-    still raises, as TPUDetector's packing does; "cuda" without a card
-    raises."""
+    has no packed form: TorchDetector refuses it and make_detector builds a
+    HOGDetector, as the JAX package's detect CLI routes it, refusing the
+    engine options; "cuda" without a card raises."""
     m = read_cascade_xml(HAAR_ALT)
     assert TorchDetector(m, device="cpu").exact
     det = TorchDetector(m, exact=True, device="cpu")
     assert det.exact and det.engine.exact and det.engine_name == "fused"
-    with pytest.raises(NotImplementedError):
-        TorchDetector(dataclasses.replace(m, feature_type=FEATURE_HOG), device="cpu")
+    hog = dataclasses.replace(m, feature_type=FEATURE_HOG, features=[], stages=[])
+    with pytest.raises(ValueError):
+        TorchDetector(hog, device="cpu")
+    assert isinstance(make_detector(hog, device="cpu"), HOGDetector)
+    assert isinstance(make_detector(m, device="cpu"), TorchDetector)
+    with pytest.raises(TypeError):
+        make_detector(hog, device="cpu", engine="fused")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             TorchDetector(m, device="cuda")

@@ -179,7 +179,7 @@ def test_packing_of_tilted_cascades():
 def test_packing_rejects_what_is_not_ported_or_escapes_the_window():
     """A tilted rect whose corner (x−h, y+h) leaves the window is refused
     (upright it is inside); an LBP cascade and a node-tree stage now pack
-    (HOG still raises, as the JAX package's packing does), and a node
+    (HOG has no packed form: ValueError, as HOGDetector serves it), and a node
     whose rect leaves the window is refused too."""
     m = read_cascade_xml(UPPERBODY)
     st = PackedCascade.from_model(m).stages[0]
@@ -192,7 +192,7 @@ def test_packing_rejects_what_is_not_ported_or_escapes_the_window():
     # the same rect upright is inside: only the tilted geometry refuses it
     up = dataclasses.replace(st, feat_rects=bad, tilted=np.zeros_like(st.tilted))
     PackedCascade(win_w=WIN_W, win_h=WIN_H, stages=[up])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         PackedCascade.from_model(dataclasses.replace(m, feature_type=FEATURE_HOG))
     lbp = PackedCascade.from_model(read_cascade_xml(os.path.join(
         os.path.dirname(UPPERBODY), "lbpcascade_frontalface.xml")))

@@ -278,13 +278,14 @@ def diag_data(d, seed=1):
 
 def run_toy(trainer, d, out, num_stages=3):
     """Train on diag_data's files → (model, transcript without the clock
-    lines)."""
+    lines: the elapsed time and the precalculation seconds)."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         model = trainer.train(os.path.join(d, out), os.path.join(d, "pos.vec"),
                               os.path.join(d, "bg.txt"), num_pos=100, num_neg=80,
                               num_stages=num_stages)
-    lines = [ln for ln in buf.getvalue().splitlines() if not ln.startswith("Training until")]
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if not ln.startswith(("Training until", "Precalculation time"))]
     return model, lines
 
 
@@ -331,8 +332,13 @@ def test_toy_run_matches_original(tmp_path, run):
 
 @pytest.mark.parametrize("what", ["depth2", "mesh", "HOG"])
 def test_still_unported_options_raise(what):
+    """A mesh still raises; deep trees and HOG are ported and build."""
     kw = {"depth2": dict(boost=boost.BoostParams(max_depth=2)), "mesh": dict(mesh=object()),
           "HOG": dict(feature_type=FEATURE_HOG)}[what]
+    if what != "mesh":
+        trainer = CascadeTrainer(device="cpu", **kw)
+        assert getattr(trainer.evaluator, "featSize", 1) == (36 if what == "HOG" else 1)
+        return
     with pytest.raises(NotImplementedError):
         CascadeTrainer(device="cpu", **kw)
 

@@ -1,7 +1,7 @@
 """The port's stage trainer against the JAX package on the CPU: a GAB
 stage (trees, thresholds, leaves, the stage threshold and the per-sample
 sums) with no budgets and with budgets that evict value and index blocks,
-and what the port does not train (deep trees, a mesh, HOG).
+and what the port does not train (a mesh).
 tests/test_torch_train_predictor.py holds the mining predictor, and
 tests/test_torch_train_boost_types.py the other boost types."""
 
@@ -130,7 +130,7 @@ def test_split_calls_go_through_the_wrapper_once_per_block(monkeypatch):
 
 @pytest.mark.parametrize("what", ["DAB", "RAB", "LB", "depth2", "mesh", "LBP", "HOG"])
 def test_unported_options_raise(what):
-    """Deep trees, a mesh and HOG raise; DAB, RAB, LB and LBP train."""
+    """A mesh raises; DAB, RAB, LB, LBP, deep trees and HOG train."""
     kw = {"DAB": dict(boost=boost.BoostParams(boost_type=BOOST_DAB)),
           "RAB": dict(boost=boost.BoostParams(boost_type=BOOST_RAB)),
           "LB": dict(boost=boost.BoostParams(boost_type=BOOST_LB)),
@@ -138,7 +138,7 @@ def test_unported_options_raise(what):
           "mesh": dict(mesh=object()),
           "LBP": dict(feature_type=FEATURE_LBP),
           "HOG": dict(feature_type=FEATURE_HOG)}[what]
-    if what in ("DAB", "RAB", "LB", "LBP"):
+    if what != "mesh":
         trainer = CascadeTrainer(device="cpu", **kw)
         assert trainer.evaluator.maxCatCount == (256 if what == "LBP" else 0)
         return
