@@ -88,10 +88,11 @@ _SIGNATURES = {
     "cct_cat_split": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     # n, the features one launch works on at once (out)
     "cct_cat_split_slots": [_I, ctypes.POINTER(_I)],
-    # img, bin table, n, h, w, hist, norm, stream
-    "cct_hog_hist": [_P, _P, _I, _I, _I, _P, _P, _P],
-    # hist, norm, cells, var ids, n, p, k, out, stream
-    "cct_hog_eval": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # img, bin table, n, h, w, channels a group, threads, hist, norm, stream
+    "cct_hog_hist": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # hist, norm, cells, var ids, n, p, features, k, the plan's scratch,
+    # out, stream
+    "cct_hog_eval": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _lib = None

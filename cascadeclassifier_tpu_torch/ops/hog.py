@@ -13,7 +13,11 @@ training evaluator's cell sums and block norms
 bin's sum over the cell divided by the block's L1 norm plus 1e-3, 0 where
 the sum is not above 1e-3 (CvHOGEvaluator::operator(), HOGfeatures.h:
 84-108). A CUDA tensor runs ``csrc/hog_hist.cu`` and ``csrc/hog_eval.cu``;
-a CPU tensor, or ``impl="ref"``, runs the plain version.
+a CPU tensor, or ``impl="ref"``, runs the plain version. Each kernel takes
+a plan: ``hist_plan`` (the channel group that fits the shared-memory
+budget, threads), built here, and the variables grouped by
+feature, which ``hog_eval.cu`` builds on the device (no host sync) and
+``eval_plan`` is the plain version of; the CPU tests hold both.
 
 The bits are the JAX package's where its order is fixed:
 
@@ -38,6 +42,8 @@ contraction), so its responses may differ from these in the last bits
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -48,7 +54,20 @@ from cascadeclassifier_tpu_torch.train.split import scan_cumsum
 GRAD_RANGE = 511  # gx, gy in [-255, 255]
 HOG_EPS = np.float32(1e-3)
 MAX_SIDE = 256  # hog_hist.cu scans a row or column in at most two levels of 16
-MAX_SHARED = 227 * 1024  # hog_hist.cu's magnitudes and bins, 5 bytes a pixel
+MAX_SHARED = 227 * 1024  # a CTA's shared memory on the H100
+CHANNELS = N_BINS + 1  # the 9 bins' integrals, then the norm's
+# hog_hist.cu's plan (utils/tune_hog.py times others): one window a CTA
+# and as many of its 10 channels as fit HIST_BUDGET bytes, which keeps 4
+# CTAs on an SM; a thread takes two row or column chains
+HIST_BUDGET = 56 * 1024
+MAX_THREADS = 1024
+SLACK = 4  # hog_hist.cu's kSlack: floats a run may shift to match its destination
+EVAL_DIRECT_MAX = 64  # hog_eval.cu's kDirectMax: shorter lists take no plan, no scratch
+# hog_eval.cu's point(k, c): the point of the block's 3x3 corner grid that
+# is cell k's corner c; and GRID_CORNER, the first (cell·4 + corner) at each point
+GRID_POINT = np.array([[(k // 2 + c // 2) * 3 + k % 2 + c % 2 for c in range(4)]
+                       for k in range(4)])
+GRID_CORNER = np.array([GRID_POINT.reshape(-1).tolist().index(q) for q in range(9)])
 
 _BIN_TABLES: dict = {}
 
@@ -68,6 +87,61 @@ def bin_table(device) -> torch.Tensor:
         b = torch.where(b >= N_BINS, b - N_BINS, b)
         _BIN_TABLES[device] = b.to(torch.uint8).reshape(-1).to(device)
     return _BIN_TABLES[device]
+
+
+@dataclasses.dataclass(frozen=True)
+class HistPlan:
+    """A hog_hist launch: a CTA a window, the 10 channels in groups of
+    ``channels`` (a grid row a group), ``threads`` a CTA; each plane (h+1)
+    rows of ``stride`` floats (odd) in ``shared`` bytes."""
+
+    channels: int
+    threads: int
+    stride: int
+    shared: int
+
+    def groups(self):
+        """[(first channel, end)] of the grid's rows."""
+        return [(c, min(CHANNELS, c + self.channels)) for c in range(0, CHANNELS, self.channels)]
+
+
+def shared_bytes(channels: int, plane: int) -> int:
+    """hog_hist.cu's shared_floats in bytes: the planes, then kSlack floats
+    for each of the two runs."""
+    return 4 * (channels * plane + 2 * SLACK)
+
+
+def hist_plan(h: int, w: int) -> HistPlan:
+    """The plan of hog_hist at (h, w): the most channels whose planes fit
+    HIST_BUDGET, at least one (a plane fits MAX_SHARED for every size the
+    wrapper takes); a thread for two row or column chains of the larger
+    pass, in whole warps."""
+    stride = w + 1 if (w + 1) % 2 else w + 2
+    plane = (h + 1) * stride
+    c = CHANNELS
+    while c > 1 and shared_bytes(c, plane) > HIST_BUDGET:
+        c -= 1
+    threads = min(MAX_THREADS, -(-c * max(h, w) // 64) * 32)
+    return HistPlan(c, threads, stride, shared_bytes(c, plane))
+
+
+def is_corner_grid(cells) -> bool:
+    """Whether each feature's corner offsets (F, 4, 4) form a 2x2 grid of
+    cells, neighbours sharing their corners, as hog_eval.cu reads them."""
+    flat = np.asarray(cells).reshape(-1, 16)
+    return bool((flat == flat[:, GRID_CORNER][:, GRID_POINT.reshape(-1)]).all())
+
+
+def eval_plan(var_ids, n_features: int):
+    """Plain version of hog_eval.cu's plan, the grouping of var_ids (K,)
+    int64 by feature: (the ids sorted; each sorted id's position in
+    var_ids; starts (n_features + 1,) int64, feature f's ids at [starts[f],
+    starts[f+1]) of the sorted list). The kernel's plan orders a feature's
+    ids as its atomics fall; no output depends on that order."""
+    ids, order = torch.sort(var_ids, stable=True)
+    bounds = torch.arange(0, (n_features + 1) * HOG_FEAT_SIZE, HOG_FEAT_SIZE,
+                          device=var_ids.device)
+    return ids, order, torch.searchsorted(ids, bounds)
 
 
 def gradients(img):
@@ -113,13 +187,17 @@ def hog_integral_histogram(img, impl: str = "auto"):
     dev = img.device
     _build.require(img, torch.uint8, 3, "img", dev)
     n, h, w = img.shape
+    # the wrapper's sizes: 5 bytes a pixel within a CTA's shared memory (a
+    # plane of every one of them fits a CTA, tests/test_torch_hog.py)
     if not (0 < h <= MAX_SIDE and 0 < w <= MAX_SIDE and 5 * h * w <= MAX_SHARED):
         raise ValueError(f"hog_hist: sides of at most {MAX_SIDE} and {MAX_SHARED // 5} "
                          f"pixels, got {h}x{w}")
+    plan = hist_plan(h, w)
     hist = torch.empty((n, N_BINS, h + 1, w + 1), dtype=torch.float32, device=dev)
     norm = torch.empty((n, h + 1, w + 1), dtype=torch.float32, device=dev)
     code = _build.lib().cct_hog_hist(img.data_ptr(), bin_table(dev).data_ptr(), n, h, w,
-                                     hist.data_ptr(), norm.data_ptr(), _build.stream_of(img))
+                                     plan.channels, plan.threads, hist.data_ptr(),
+                                     norm.data_ptr(), _build.stream_of(img))
     _build.check(code, "cct_hog_hist")
     _build.LAUNCHES["hog_hist"] += 1
     return hist, norm
@@ -145,7 +223,11 @@ def hog_responses_ref(hist, norm, cells, var_ids):
 
 def hog_responses(hist, norm, cells, var_ids, impl: str = "auto"):
     """hist (N, 9, P) f32, norm (N, P) f32, cells (F, 4, 4) int32 corner
-    offsets, var_ids (K,) int64 (var = f·36 + cell·9 + bin) → (K, N) f32."""
+    offsets, each feature's a 2x2 grid of cells (``is_corner_grid``, as
+    ``HOGCatalog.cell_corner_offsets`` builds them; the kernel reads each
+    shared corner once and does not check), var_ids (K,) int64 (var =
+    f·36 + cell·9 + bin, 0 ≤ var < 36F; any order, repeats allowed) → (K,
+    N) f32."""
     if _build.use_ref(hist, impl):
         return hog_responses_ref(hist, norm, cells, var_ids)
     dev = hist.device
@@ -157,11 +239,16 @@ def hog_responses(hist, norm, cells, var_ids, impl: str = "auto"):
     if nb != N_BINS or norm.shape != (n, p) or tuple(cells.shape[1:]) != (4, 4):
         raise ValueError(f"hog_eval: shapes {tuple(hist.shape)}, {tuple(norm.shape)}, "
                          f"{tuple(cells.shape)}")
-    k = var_ids.shape[0]
+    k, nf = var_ids.shape[0], cells.shape[0]
+    # the plan's scratch, for a list longer than EVAL_DIRECT_MAX (kept until
+    # the launch is queued)
+    scratch = (torch.empty(2 * nf + 1 + 2 * k, dtype=torch.int32, device=dev)
+               if k > EVAL_DIRECT_MAX else None)
     out = torch.empty((k, n), dtype=torch.float32, device=dev)
     code = _build.lib().cct_hog_eval(hist.data_ptr(), norm.data_ptr(), cells.data_ptr(),
-                                     var_ids.data_ptr(), n, p, k, out.data_ptr(),
-                                     _build.stream_of(hist))
+                                     var_ids.data_ptr(), n, p, nf, k,
+                                     None if scratch is None else scratch.data_ptr(),
+                                     out.data_ptr(), _build.stream_of(hist))
     _build.check(code, "cct_hog_eval")
     _build.LAUNCHES["hog_eval"] += 1
     return out

@@ -36,7 +36,11 @@ from cascadeclassifier_tpu_torch.ops.features import (
     lbp_catalog,
     lbp_code_grid,
 )
-from cascadeclassifier_tpu_torch.ops.hog import hog_integral_histogram, hog_responses
+from cascadeclassifier_tpu_torch.ops.hog import (
+    hog_integral_histogram,
+    hog_responses,
+    is_corner_grid,
+)
 from cascadeclassifier_tpu_torch.ops.integral import (
     integral_image,
     integral_sq,
@@ -230,7 +234,10 @@ class HOGTrainEvaluator:
         self.p = (catalog.win_w + 1) * (catalog.win_h + 1)
         self.num_features = len(catalog)
         self.var_count = catalog.var_count
-        self._cells = torch.from_numpy(catalog.cell_corner_offsets()).to(self.device)
+        cells = catalog.cell_corner_offsets()
+        if not is_corner_grid(cells):
+            raise ValueError("HOG catalog: a feature's cells are not a 2x2 grid")
+        self._cells = torch.from_numpy(cells).to(self.device)
         self.impl = impl
         self.n = 0
 

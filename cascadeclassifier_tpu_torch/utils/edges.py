@@ -29,11 +29,16 @@ window of one code, a feature of 4 codes, a feature all in one category
 and a feature of skewed codes; and skewed blocks of one feature less than,
 as many as and one more than one launch's warps (``cat_split_edge_cases``).
 The HOG kernels (``csrc/hog_hist.cu``, ``csrc/hog_eval.cu``) take windows
-of sides around their runs of 16 (``HOG_SIDES``): a flat window, a
+of sides around their runs of 16 and the largest the wrapper takes, whose
+planes need one channel group each (``HOG_SIDES``): a flat window, a
 vertical and a horizontal step edge, ±255 gradients at each border, a
-window of noise, and, for each of the 18 bin edges of the angle (9 mod π),
+window of noise, for each of the 18 bin edges of the angle (9 mod π),
 a window of 3x3 stencils whose centre gradients lie on and beside the edge
-at three radii (``hog_edge_cases``).
+at three radii, and batches of 1, 3 and 5 windows of noise, which leave a
+CTA's windows part full and start spans unaligned (``hog_edge_cases``);
+``hog_eval`` also takes, on the noise, variable lists unsorted and
+repeated (short, and longer than its plan-free limit), of one variable,
+and of one feature's 36 shuffled (``hog_id_cases``).
 ``chip_smoke.py`` and the card's tests run the same cases.
 """
 
@@ -421,7 +426,10 @@ def cat_split_edge_mismatches(device):
     return n, bad
 
 
-HOG_SIDES = ((24, 24), (32, 32), (16, 17), (33, 20))  # (h, w): around the runs of 16
+# (h, w): around the runs of 16; 181 x 256 and 256 x 181 at the wrapper's
+# limit (5hw bytes ≤ 227 KiB), one channel a CTA, the second with a padded stride
+HOG_SIDES = ((24, 24), (32, 32), (16, 17), (33, 20), (181, 256), (256, 181))
+HOG_ALL_VARS = 4096  # sides with more variables check every 97th and the last feature's
 
 
 def _stencils(h: int, w: int, pairs) -> np.ndarray:
@@ -445,24 +453,43 @@ def hog_edge_cases(h: int, w: int):
     borders[0, :, 0] = borders[1, :, -1] = borders[2, 0] = borders[3, -1] = 255
     yield "flat and step edges", np.stack([flat, vstep, hstep, 255 - vstep])
     yield "±255 at the borders", np.concatenate([borders, 255 - borders])
-    yield "noise", np.random.default_rng(h * 100 + w).integers(0, 256, (8, h, w), dtype=np.uint8)
+    rng = np.random.default_rng(h * 100 + w)
+    yield "noise", rng.integers(0, 256, (8, h, w), dtype=np.uint8)
     for j in range(2 * N_BINS):
         ang = (j + 0.5) * np.pi / N_BINS
         pairs = [(int(np.rint(r * np.cos(ang))) + dx, int(np.rint(r * np.sin(ang))) + dy)
                  for r in (9, 120, 254) for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
         pairs = [(max(-255, min(255, gx)), max(-255, min(255, gy))) for gx, gy in pairs]
         yield f"bin edge {j}", _stencils(h, w, pairs)[None]
+    for k in (1, 3, 5):
+        yield f"{k} noise windows", rng.integers(0, 256, (k, h, w), dtype=np.uint8)
+
+
+def hog_id_cases(var_count: int, seed: int):
+    """(label, (K,) int64 variable ids) of hog_eval's lists."""
+    rng = np.random.default_rng(seed)
+    some = rng.integers(0, var_count, 40)
+    yield "unsorted, repeated", np.concatenate([some, some[::3], some[:1]])
+    many = rng.integers(0, var_count, 150)  # longer than hog_eval.cu's kDirectMax: the plan's path
+    yield "unsorted, repeated, long", np.concatenate([many, many[::2]])
+    yield "one variable", rng.integers(0, var_count, 1)
+    yield "one feature's 36 shuffled", rng.integers(0, var_count // 36) * 36 + rng.permutation(36)
 
 
 def hog_edge_mismatches(device):
-    """hog_hist and hog_eval (every variable of the window's catalog) over
-    hog_edge_cases() at HOG_SIDES against their plain versions on the
-    same device → (cases run, descriptions of the cases that differ)."""
+    """hog_hist and hog_eval (every variable of the window's catalog, or a
+    sample of at most HOG_ALL_VARS) over hog_edge_cases() at HOG_SIDES, and
+    hog_eval over hog_id_cases() on each side's noise, against their plain
+    versions on the same device → (cases run, descriptions of the cases
+    that differ)."""
     n, bad = 0, []
     for h, w in HOG_SIDES:
         cat = hog_catalog(w, h)
         cells = torch.from_numpy(cat.cell_corner_offsets()).to(device)
         ids = torch.arange(cat.var_count, device=device)
+        if cat.var_count > HOG_ALL_VARS:
+            ids = torch.cat([ids[::97], ids[-36:]])
+        noise = None
         for label, x in hog_edge_cases(h, w):
             xd = torch.from_numpy(np.ascontiguousarray(x)).to(device)
             hist, norm = hog_integral_histogram(xd)
@@ -474,4 +501,12 @@ def hog_edge_mismatches(device):
             if not (torch.equal(hist, want_h) and torch.equal(norm, want_n)
                     and torch.equal(got, want)):
                 bad.append(f"{h}x{w} {label}")
+            if label == "noise":
+                noise = flat
+        for label, case in hog_id_cases(cat.var_count, h * w):
+            case = torch.from_numpy(case).to(device)
+            n += 1
+            if not torch.equal(hog_responses(*noise, cells, case),
+                               hog_responses(*noise, cells, case, impl="ref")):
+                bad.append(f"{h}x{w} hog_eval {label}")
     return n, bad

@@ -189,15 +189,24 @@ Deep weak trees and HOG, on (s)'s data:
   (v) hog       Check 1: hog_hist and hog_eval (every variable) on stage
                 0's 3072 samples at 24x24 and resized to 32x32 (cells of
                 16), and on utils/edges.py's HOG windows (flat, step edges,
-                ±255 at the borders, the bin edges), bit for bit equal to
-                their plain versions (hog_hist to the CPU's too). Check 2:
+                ±255 at the borders, the bin edges, batches of 1, 3 and 5
+                windows; 181x256 and 256x181 too; hog_eval also on unsorted,
+                repeated, single and shuffled variable lists), bit for bit
+                equal to their plain versions (hog_hist to the CPU's too).
+                Check 2:
                 the first 3 stages of a 20-stage 24x24 HOG GAB run on the
                 card with the checks of (u), and stage 0 card against CPU
                 byte for byte. Check 3: the trained cascade detects on
                 synth_frame(0) at 1080p (sf 1.1, minNeighbors 3) on the
                 card, its raw candidates and rects equal to the
                 plain-version path's on the card; windows, ms a frame and
-                the phase split (every scope, and the time outside them)
+                the phase split (every scope, and the time outside them).
+                Check 4: both kernels on the detector's first batch (8 192
+                windows at 24x24, the cascade's used variables) equal to
+                their plain versions; both timed there and at 32x32 too,
+                and their device time from torch.profiler at 24x24
+                (hog_eval's plan and gather launches apart) and on the
+                detector's batch (hog_eval's direct gather)
 
 and last, per kernel at its path's shapes: time against its twin, the
 least time the card could take (bytes over 3.35 TB/s or operations over
@@ -228,6 +237,8 @@ import time
 import numpy as np
 import torch
 
+from cascadeclassifier_tpu_torch.utils.time_hog import cuda_ms, device_ms
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, device memory
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -242,20 +253,6 @@ def fail(msg: str):
 def check(cond, msg: str):
     if not cond:
         fail(msg)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps calls, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
 
 
 def bound(nbytes: float, nops: float, rate: float = F32_OPS_PER_S):
@@ -880,9 +877,9 @@ def main():
 
     # ------------------------------------------------------------------
     # (u) deep weak trees, (v) HOG training and detection
-    launch_extra = {}
-    deep_phase(dev, vec, bg, launches, launch_extra)
-    hog_phase(dev, vec, bg, timed, work, errs, launches, launch_extra)
+    values_extra = {}  # kernel name -> {key: value}: further numbers beside the kernel's
+    deep_phase(dev, vec, bg, launches, values_extra)
+    hog_phase(dev, vec, bg, timed, work, errs, launches, timed_extra, values_extra)
 
     meta = {
         "integral": ("cascadeclassifier_tpu_torch/csrc/integral.cu",
@@ -950,7 +947,7 @@ def main():
         if isinstance(n_launch, tuple):  # (launches, frames) of a newer path
             extra = {"launches_per_frame": n_launch[0] / n_launch[1]}
             n_launch = n_launch[0]
-        extra.update(launch_extra.get(name, {}))
+        extra.update(values_extra.get(name, {}))
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": n_launch,
@@ -1671,7 +1668,7 @@ def card_and_cpu_stage0(tag: str, dev, vec, bg, n_pos: int, n_neg: int, **kw):
     return outs["cpu"], card_launches
 
 
-def deep_phase(dev, vec, bg, launches, launch_extra):
+def deep_phase(dev, vec, bg, launches, values_extra):
     """(u): weak trees of depth 2 (-maxDepth 2) on (s)'s data: the three
     split kernels under node masks that are no tree root's; see the module
     docstring."""
@@ -1701,7 +1698,7 @@ def deep_phase(dev, vec, bg, launches, launch_extra):
     tm = trained_stage_times("u", trainer, 3)
     trees = [t for st in trainer.stages for t in st.trees]
     splits = sum(t.num_nodes for t in trees)
-    launch_extra["split_scan_gather"] = {"launches_depth2": n_gather,
+    values_extra["split_scan_gather"] = {"launches_depth2": n_gather,
                                          "launches_depth2_per_tree": n_gather / len(trees)}
     print(f"(u) check 1: 3 stages of a 20-stage Haar BASIC GAB run at max_depth 2 (weak_count "
           f"100, minHitRate 0.995, maxFalseAlarm 0.5, 1000 + 2000 samples): {len(trees)} trees, "
@@ -1723,7 +1720,7 @@ def deep_phase(dev, vec, bg, launches, launch_extra):
         check(n_launch > 0, f"({tag}) kernel {kernel} was not launched")
         n_trees = xml.count(b"<internalNodes>")
         if kernel != "split_scan_gather":
-            launch_extra[kernel] = {"launches_depth2": n_launch,
+            values_extra[kernel] = {"launches_depth2": n_launch,
                                     "launches_depth2_per_tree": n_launch / max(n_trees, 1)}
         print(f"(u) check 2: {tag} stage 0 at {n_pos} + {n_neg} samples on the card and on the "
               f"CPU: stage0.xml byte-identical ({len(xml)} bytes, {n_trees} trees, "
@@ -1792,7 +1789,25 @@ def hog_eval_sector_bytes(cells, ids, n: int, p: int) -> int:
     return (len(hist_sec) + len(norm_sec)) * 32
 
 
-def hog_phase(dev, vec, bg, timed, work, errs, launches, launch_extra):
+def hog_bounds(n: int, side: int, cells, ids):
+    """(hog_hist's bound, hog_eval's bound) on n windows of side x side and
+    the variables ids."""
+    px, p = side * side, (side + 1) ** 2
+    # hog_hist: the windows and the bin table read once, 10 integrals written;
+    # per pixel 2 subtractions, 2 products, a sum, a root, 10 one-hot selects
+    # and 2 adds a channel (the two scans)
+    hist = bound(n * px + 511 * 511 + n * 10 * p * 4, n * px * (6 + 10 + 20))
+    # hog_eval: of the histograms and norms only the corners its variables
+    # name, in whole 32-byte sectors; the corner table and ids read once,
+    # the (vars, samples) responses written once; 6 adds, an add, a
+    # division and a compare an output
+    k = int(ids.numel())
+    resp = bound(hog_eval_sector_bytes(cells, ids, n, p) + cells.numel() * 4 + k * 8 + k * n * 4,
+                 k * n * 9)
+    return hist, resp
+
+
+def hog_phase(dev, vec, bg, timed, work, errs, launches, timed_extra, values_extra):
     """(v): HOG on (s)'s data: the two kernels on stage 0's samples and the
     edge windows, 3 stages of HOG training, detection with the trained
     cascade at 1080p; see the module docstring."""
@@ -1803,6 +1818,7 @@ def hog_phase(dev, vec, bg, timed, work, errs, launches, launch_extra):
     from cascadeclassifier_tpu_torch.data.vec import PosReader
     from cascadeclassifier_tpu_torch.detect.grouping import clip_rects, group_rectangles
     from cascadeclassifier_tpu_torch.detect.hog_detector import HOGDetector
+    from cascadeclassifier_tpu_torch.detect.pyramid import build_plan
     from cascadeclassifier_tpu_torch.models.model import FEATURE_HOG
     from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml, write_cascade_xml
     from cascadeclassifier_tpu_torch.ops.features import hog_catalog
@@ -1857,18 +1873,18 @@ def hog_phase(dev, vec, bg, timed, work, errs, launches, launch_extra):
     timed["hog_eval"] = (lambda: hog_responses(*flat, cells, ids),
                          lambda: hog_responses(*flat, cells, ids, impl="ref"),
                          lambda: hog_eval_library(*flat, m_cells, m_norm, n), 3)
-    px, p = 24 * 24, flat[1].shape[1]
-    # hog_hist: the windows and the bin table read once, 10 integrals written;
-    # per pixel 2 subtractions, 2 products, a sum, a root, 10 one-hot selects
-    # and 2 adds a channel (the two scans)
-    work["hog_hist"] = bound(n * px + 511 * 511 + n * 10 * p * 4, n * px * (6 + 10 + 20))
-    # hog_eval: of the histograms and norms only the corners its variables
-    # name, in whole 32-byte sectors; the corner table and ids read once,
-    # the (vars, samples) responses written once; 6 adds, an add, a
-    # division and a compare an output
-    k = int(ids.numel())
-    work["hog_eval"] = bound(hog_eval_sector_bytes(cells, ids, n, p) + cells.numel() * 4
-                             + k * 8 + k * n * 4, k * n * 9)
+    work["hog_hist"], work["hog_eval"] = hog_bounds(n, 24, cells, ids)
+    x32, flat32, cells32, ids32, _ = inputs[32]
+    b32 = hog_bounds(x32.shape[0], 32, cells32, ids32)
+    timed_extra["hog_hist"] = {"ms_32x32": lambda: hog_integral_histogram(x32)}
+    timed_extra["hog_eval"] = {"ms_32x32": lambda: hog_responses(*flat32, cells32, ids32)}
+    values_extra["hog_hist"] = {"bound_ms_32x32": b32[0][0], "device_ms": device_ms(
+        lambda: hog_integral_histogram(x), ["hog_hist_kernel"])["hog_hist_kernel"]}
+    dev_eval = device_ms(lambda: hog_responses(*flat, cells, ids),
+                                ["hog_eval_plan_kernel", "hog_eval_kernel"])
+    values_extra["hog_eval"] = {"bound_ms_32x32": b32[1][0],
+                                "device_ms_plan": dev_eval["hog_eval_plan_kernel"],
+                                "device_ms_gather": dev_eval["hog_eval_kernel"]}
 
     # -- check 2: 3 stages of HOG training on the card, first superbatches
     # against the CPU's, stage 0 byte for byte
@@ -1932,8 +1948,8 @@ def hog_phase(dev, vec, bg, timed, work, errs, launches, launch_extra):
           "HOG detection: the kernels' rects differ from the plain-version path's")
     check(det_launches.get("hog_hist", 0) > 0 and det_launches.get("hog_eval", 0) > 0,
           "HOG detection did not launch both HOG kernels")
-    launch_extra["hog_hist"] = {"launches_detect_frame": det_launches.get("hog_hist", 0)}
-    launch_extra["hog_eval"] = {"launches_detect_frame": det_launches.get("hog_eval", 0)}
+    values_extra["hog_hist"]["launches_detect_frame"] = det_launches.get("hog_hist", 0)
+    values_extra["hog_eval"]["launches_detect_frame"] = det_launches.get("hog_eval", 0)
     print(f"(v) check 3: HOG detection on synth_frame(0) at 1080p, sf 1.1, minNeighbors 3: "
           f"{n_windows} windows, {len(raw)} raw candidates, {len(rects)} rects, the raw "
           f"candidates and the rects equal to the plain-version path's; {ms:.1f} ms a frame "
@@ -1941,6 +1957,35 @@ def hog_phase(dev, vec, bg, timed, work, errs, launches, launch_extra):
               f"{k} {v:.1f}" for k, v in sorted(phases.items())) + f" ms; hog_hist launched "
           f"{det_launches.get('hog_hist', 0)} times, hog_eval {det_launches.get('hog_eval', 0)}"
           f"; {time.perf_counter() - t4:.1f} s", flush=True)
+
+    # -- check 4: both kernels on the detector's first batch (level 0's
+    # first 8 192 windows) and the cascade's used variables
+    plan = build_plan(frame.shape[1], frame.shape[0], 24, 24, 1.1, None, None)
+    step = int(plan.ystep[0])
+    xb = torch.from_numpy(frame).to(dev).unfold(0, 24, step).unfold(1, 24, step)
+    xb = xb.reshape(-1, 24, 24)[:det.batch].contiguous()
+    used = torch.as_tensor(det._pred._walk_of(det._ev)[0], dtype=torch.int64, device=dev)
+    nb = xb.shape[0]
+    (hb, nmb), (hb_t, nmb_t) = hog_integral_histogram(xb), hog_integral_histogram(xb, impl="ref")
+    check(torch.equal(hb, hb_t) and torch.equal(nmb, nmb_t),
+          "hog_hist != its plain version on the detector's batch")
+    flat_b = (hb.reshape(nb, 9, -1), nmb.reshape(nb, -1))
+    check(torch.equal(hog_responses(*flat_b, cells, used),
+                      hog_responses(*flat_b, cells, used, impl="ref")),
+          "hog_eval != its plain version on the detector's batch")
+    bb = hog_bounds(nb, 24, cells, used)
+    timed_extra["hog_hist"]["ms_detector_batch"] = lambda: hog_integral_histogram(xb)
+    timed_extra["hog_eval"]["ms_detector_batch"] = lambda: hog_responses(*flat_b, cells, used)
+    values_extra["hog_hist"]["bound_ms_detector_batch"] = bb[0][0]
+    values_extra["hog_eval"]["bound_ms_detector_batch"] = bb[1][0]
+    values_extra["hog_hist"]["device_ms_detector_batch"] = device_ms(
+        lambda: hog_integral_histogram(xb), ["hog_hist_kernel"])["hog_hist_kernel"]
+    values_extra["hog_eval"]["device_ms_detector_batch"] = sum(device_ms(
+        lambda: hog_responses(*flat_b, cells, used),
+        ["hog_eval_plan_kernel", "hog_eval_kernel", "hog_eval_direct_kernel"]).values())
+    values_extra["hog_eval"]["vars_detector_batch"] = int(used.numel())
+    print(f"(v) check 4: hog_hist and hog_eval ({used.numel()} used variables) on the detector's"
+          f" first batch of {nb} windows at 24x24 equal to their plain versions", flush=True)
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     print(f"(v) phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -2134,15 +2179,15 @@ def profile(name: str, det, frames, sf):
         torch.cuda.synchronize()
         traced = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.device_time for e in events) / 1e3
+    kernel_ms = sum(e.device_time for e in events) / 1e3
     # cudaLaunchKernelExC too: the integral's programmatic dependent launches
     launches = sum(1 for e in prof.events()
                    if e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
     syncs = sum(1 for e in prof.events() if "Synchronize" in e.name)
     n = len(frames)
-    print(f"profile {name}: device kernel time {device_ms / n:.2f} ms/frame, wall "
+    print(f"profile {name}: device kernel time {kernel_ms / n:.2f} ms/frame, wall "
           f"{wall / n:.2f} ms/frame untraced ({traced / n:.2f} traced), device idle "
-          f"{100 * (1 - device_ms / wall):.1f} % of the untraced wall; "
+          f"{100 * (1 - kernel_ms / wall):.1f} % of the untraced wall; "
           f"{launches / n:.0f} kernel launches and {syncs / n:.0f} synchronizations "
           f"a frame", flush=True)
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=8), flush=True)

@@ -1,7 +1,9 @@
 """HOG in the port against the JAX package on the CPU: the catalog (and
 the reference's golden geometry), the orientation bin and magnitude of
 every (gx, gy) pair, the integral histograms bit for bit, a numpy replay
-of hog_hist.cu's scan order, the responses (bit for bit against eval_hog,
+of hog_hist.cu's scan order, its plan and shared-memory layout, hog_eval's
+grouping of the variables and a replay of its per-feature walk, the
+responses (bit for bit against eval_hog,
 within 2^-22 of the JAX evaluator's matrix product, whose order of adds
 depends on its shapes: ROADMAP C.4), the evaluator's interface, a 32x32
 HOG toy run against the JAX trainer, the HOG detector against the JAX
@@ -9,6 +11,7 @@ HOGDetector, and (cuda-marked) both kernels against their plain versions
 on the card."""
 
 import contextlib
+import dataclasses
 import io
 import os
 
@@ -43,7 +46,10 @@ from cascadeclassifier_tpu_torch.train.evaluators import (  # noqa: E402
     make_evaluator,
 )
 from cascadeclassifier_tpu_torch.train.trainer import CascadeTrainer  # noqa: E402
-from cascadeclassifier_tpu_torch.utils.edges import hog_edge_mismatches  # noqa: E402
+from cascadeclassifier_tpu_torch.utils.edges import (  # noqa: E402
+    hog_edge_mismatches,
+    hog_id_cases,
+)
 from cascadeclassifier_tpu_torch.utils.time_grouping import detection_like, pair_set  # noqa: E402
 
 from .test_features import _load_geom, _load_imgs, _load_resp  # noqa: E402
@@ -153,6 +159,205 @@ def test_hist_kernel_order_in_numpy_matches_plain(h, w):
     ph, pn = hog.hog_integral_histogram(x)
     np.testing.assert_array_equal(_bits(got[:9]), _bits(ph[0]))
     np.testing.assert_array_equal(_bits(got[9]), _bits(pn[0]))
+
+
+def _supported_sides():
+    return [(h, w) for h in range(1, hog.MAX_SIDE + 1) for w in range(1, hog.MAX_SIDE + 1)
+            if 5 * h * w <= hog.MAX_SHARED]
+
+
+def test_hist_plan_covers_channels_and_fits():
+    """For every size the wrapper takes: the channel groups cover channels
+    0-9 once, the CTA's shared memory fits the card and the budget (but
+    for a single plane that exceeds it), the stride is odd, the threads
+    are whole warps; 24x24 and 32x32 take all 10 channels a CTA."""
+    sides = _supported_sides()
+    assert len(sides) > 50_000 and (181, 256) in sides and (256, 181) in sides
+    for h, w in sides:
+        plan = hog.hist_plan(h, w)
+        chans = [c for lo, hi in plan.groups() for c in range(lo, hi)]
+        assert chans == list(range(hog.CHANNELS)), (h, w, plan)
+        plane = (h + 1) * plan.stride
+        assert plan.stride % 2 == 1 and plan.stride in (w + 1, w + 2), (h, w, plan)
+        assert plan.shared == hog.shared_bytes(plan.channels, plane)
+        assert plan.shared <= hog.MAX_SHARED, (h, w, plan)
+        assert plan.shared <= hog.HIST_BUDGET or plan.channels == 1
+        assert plan.threads % 32 == 0 and 0 < plan.threads <= hog.MAX_THREADS
+    for side in (24, 32):  # all 10 channels a CTA, 4 CTAs an SM
+        plan = hog.hist_plan(side, side)
+        assert plan.channels == 10 and 4 * plan.shared <= hog.MAX_SHARED
+
+
+def _hist_layout_in_numpy(n, h, w, plan):
+    """hog_hist.cu's shared layout and step 4's runs to device memory,
+    replayed for every CTA (a window and channel group): checks that each
+    CTA's planes fit its shared bytes without overlap and that each run
+    agrees with its destination modulo 16 bytes where it is copied whole;
+    → for each float of hist (n, 9, h+1, w+1) and of norm (n, h+1, w+1),
+    (the shared index step 4 copies it from, the index of the plane it
+    belongs to plus its row and column), both per CTA."""
+    st, w1 = plan.stride, w + 1
+    pp, p = (h + 1) * st, (h + 1) * w1
+    at = np.arange(p) // w1 * st + np.arange(p) % w1  # output offset → shared offset
+    got = {"hist": np.full(n * 9 * p, -1), "norm": np.full(n * p, -1)}
+    want = {"hist": np.full(n * 9 * p, -2), "norm": np.full(n * p, -2)}
+
+    def align(slot, dst):
+        return slot + (((dst & 3) - (slot & 3)) & 3)
+
+    for s in range(n):
+        for c0, c1 in plan.groups():
+            nb = max(0, min(c1, 9) - c0)
+            hdst, ndst = (s * 9 + c0) * p, s * p
+            hbase = align(0, hdst)
+            nbase = align(hbase + nb * pp, ndst)
+            starts = [hbase + j * pp for j in range(nb)] + ([nbase] if c1 == 10 else [])
+            assert starts[0] >= 0 and all(b - a >= pp for a, b in zip(starts, starts[1:]))
+            assert (starts[-1] + pp) * 4 <= plan.shared
+            for j, start in enumerate(starts):
+                c = c0 + j
+                if c < 9:
+                    want["hist"][(s * 9 + c) * p + np.arange(p)] = start + at
+                else:
+                    want["norm"][s * p + np.arange(p)] = start + at
+            runs = ([("hist", hdst, hbase, nb)] if nb else []) + (
+                [("norm", ndst, nbase, 1)] if c1 == 10 else [])
+            for name, dst, src, planes in runs:
+                if st == w1:  # copy_run: src + i
+                    assert (src - dst) % 4 == 0
+                i = np.arange(planes * p)  # copy_run (pp == p) and the row copy alike
+                assert (got[name][dst + i] == -1).all()
+                got[name][dst + i] = src + i // p * pp + at[i % p]
+    return got, want
+
+
+@pytest.mark.parametrize("n,h,w,channels", [
+    (7, 24, 24, None),
+    (7, 24, 24, 4),
+    (5, 16, 17, 2),
+    (4, 33, 20, 3),
+    (5, 33, 20, 1),
+    (3, 60, 200, None),
+    (2, 181, 256, None),
+    (2, 256, 181, None),
+])
+def test_hist_layout_in_numpy(n, h, w, channels):
+    """Every output float is copied once, from its own window's and
+    channel's plane, at its row and column, for the wrapper's plans and
+    for channel groups that split the bins (utils/tune_hog.py's)."""
+    plan = hog.hist_plan(h, w)
+    if channels is not None:
+        plane = (h + 1) * plan.stride
+        plan = dataclasses.replace(plan, channels=channels,
+                                   shared=hog.shared_bytes(channels, plane))
+    got, want = _hist_layout_in_numpy(n, h, w, plan)
+    for name in ("hist", "norm"):
+        assert (got[name] >= 0).all(), name
+        np.testing.assert_array_equal(got[name], want[name])
+
+
+def test_constants_match_the_kernels():
+    """ops/hog.py's mirrors of the kernels' constants."""
+    import re
+
+    def const(source, name):
+        with open(os.path.join(_build.CSRC_DIR, source)) as f:
+            return int(re.search(rf"constexpr int {name} = (\d+);", f.read()).group(1))
+
+    assert const("hog_hist.cu", "kSlack") == hog.SLACK
+    assert const("hog_hist.cu", "kMaxThreads") == hog.MAX_THREADS
+    assert const("hog_eval.cu", "kDirectMax") == hog.EVAL_DIRECT_MAX
+    assert 227 * 1024 == hog.MAX_SHARED
+
+
+def test_eval_plan_maps_back():
+    """eval_plan's sorted ids are var_ids at its positions, each position
+    once, and feature f's range holds exactly its ids."""
+    rng = np.random.default_rng(5)
+    nf = 9
+    var_ids = np.concatenate([rng.integers(0, nf * 36, 50), [0, 0, nf * 36 - 1, 40, 40]])
+    rng.shuffle(var_ids)
+    ids, order, starts = hog.eval_plan(torch.from_numpy(var_ids), nf)
+    np.testing.assert_array_equal(ids.numpy(), var_ids[order.numpy()])
+    np.testing.assert_array_equal(np.sort(order.numpy()), np.arange(len(var_ids)))
+    assert starts.shape == (nf + 1,) and starts[0] == 0 and starts[-1] == len(var_ids)
+    for f in range(nf):
+        part = ids[starts[f]:starts[f + 1]].numpy()
+        assert (part // 36 == f).all()
+        assert len(part) == (var_ids // 36 == f).sum()
+    empty = hog.eval_plan(torch.zeros(0, dtype=torch.int64), nf)[2]
+    assert (empty == 0).all()
+
+
+def test_corner_grid_tables():
+    """hog_eval.cu's point() and defining() mirrored in ops/hog.py; the
+    catalog's corner tables are grids, a skewed one is not, and the
+    evaluator refuses it."""
+    for q in range(9):
+        k, c = divmod(int(hog.GRID_CORNER[q]), 4)
+        assert hog.GRID_POINT[k, c] == q
+        assert int(hog.GRID_CORNER[q]) == min(4 * k + c for k in range(4) for c in range(4)
+                                              if hog.GRID_POINT[k, c] == q)
+    assert hog.GRID_POINT[:, 0].tolist() == [0, 1, 3, 4]
+    for win in ((16, 20), (24, 24), (32, 32), (48, 40)):
+        cat = hog_catalog(*win)
+        cells = cat.cell_corner_offsets()
+        assert hog.is_corner_grid(cells)
+        skew = cells.copy()
+        skew[len(skew) // 2, 3, 0] += 1  # cell 3's top left corner off the grid
+        assert not hog.is_corner_grid(skew)
+    cat.cell_corner_offsets = lambda: skew
+    with pytest.raises(ValueError, match="2x2 grid"):
+        HOGTrainEvaluator(cat, device="cpu")
+
+
+def _eval_kernel_in_torch(hist, norm, cells, var_ids):
+    """hog_eval.cu's walk on eval_plan's groups: per feature, the asked
+    variables, the norm's 4 corners, per bin asked the grid points its
+    cells need, each asked cell's response, then each variable to its
+    row."""
+    n, nf = hist.shape[0], cells.shape[0]
+    ids, order, starts = hog.eval_plan(var_ids, nf)
+    out = torch.full((len(var_ids), n), float("nan"))
+    eps = torch.tensor(hog.HOG_EPS)
+    grid = torch.from_numpy(hog.GRID_CORNER)
+
+    def corners(v):
+        return ((v[:, 0] - v[:, 1]) - v[:, 2]) + v[:, 3]
+
+    for f in range(nf):
+        lo, hi = int(starts[f]), int(starts[f + 1])
+        if lo == hi:
+            continue
+        comps = ids[lo:hi] - f * 36
+        asked = set(comps.tolist())
+        o = cells[f].reshape(16).long()
+        den = corners(norm[:, o[[0, 5, 10, 15]]]) + eps
+        resp = torch.zeros((36, n))
+        for b in range(9):
+            for k in (k for k in range(4) if k * 9 + b in asked):
+                cs = corners(hist[:, b, o[grid]][:, hog.GRID_POINT[k]])
+                resp[k * 9 + b] = torch.where(cs > eps, cs / den, 0.0)
+        out[order[lo:hi]] = resp[comps]
+    return out
+
+
+@pytest.mark.parametrize("h,w", [(16, 20), (24, 24), (32, 32)])
+def test_eval_kernel_walk_in_torch_matches_plain(h, w):
+    """The replay of hog_eval.cu's per-feature walk equals the plain
+    version bit for bit on every variable and on hog_id_cases' lists."""
+    n = 24
+    x = torch.from_numpy(_windows(h, w, n, 2 * h + w))
+    hist, norm = hog.hog_integral_histogram(x)
+    hist, norm = hist.reshape(n, 9, -1), norm.reshape(n, -1)
+    cat = hog_catalog(w, h)
+    cells = torch.from_numpy(cat.cell_corner_offsets())
+    lists = [np.arange(cat.var_count)] + [ids for _, ids in hog_id_cases(cat.var_count, h)]
+    for ids in lists:
+        ids = torch.from_numpy(np.asarray(ids, np.int64))
+        got = _eval_kernel_in_torch(hist, norm, cells, ids)
+        np.testing.assert_array_equal(_bits(got), _bits(hog.hog_responses_ref(hist, norm, cells,
+                                                                               ids)))
 
 
 def _responses(x):
@@ -345,7 +550,7 @@ def test_hog_edge_cases_on_the_cpu():
     """utils/edges.py's HOG windows run through both entry points on the
     CPU (the plain version twice): the set the card checks."""
     n_cases, bad = hog_edge_mismatches(torch.device("cpu"))
-    assert n_cases == 84 and not bad
+    assert n_cases == 168 and not bad
 
 
 @pytest.fixture
@@ -356,7 +561,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,w,n", [(24, 24, 3072), (32, 32, 3072), (16, 20, 7), (60, 200, 3)])
+@pytest.mark.parametrize("h,w,n", [(24, 24, 3072), (32, 32, 3072), (16, 20, 7), (60, 200, 3),
+                                   (24, 24, 8192), (181, 256, 5), (256, 181, 3)])
 def test_hog_kernels_match_plain(cuda_device, h, w, n):
     x = torch.from_numpy(_windows(h, w, n, n + h)).to(cuda_device)
     before = dict(_build.LAUNCHES)
@@ -376,7 +582,25 @@ def test_hog_kernels_match_plain(cuda_device, h, w, n):
 @pytest.mark.cuda
 def test_hog_kernel_edges(cuda_device):
     n_cases, bad = hog_edge_mismatches(cuda_device)
-    assert n_cases == 84 and not bad, bad
+    assert n_cases == 168 and not bad, bad
+
+
+@pytest.mark.cuda
+def test_hog_eval_lists_match_plain(cuda_device):
+    """hog_eval at the detector's batch (8 192 windows at 24x24) on
+    hog_id_cases' lists and a few variables of many features, equal to
+    the plain version."""
+    n = 8192
+    x = torch.from_numpy(_windows(24, 24, n, 3)).to(cuda_device)
+    hist, norm = hog.hog_integral_histogram(x)
+    flat = (hist.reshape(n, 9, -1), norm.reshape(n, -1))
+    cat = hog_catalog(24, 24)
+    cells = torch.from_numpy(cat.cell_corner_offsets()).to(cuda_device)
+    lists = [ids for _, ids in hog_id_cases(cat.var_count, 1)] + [np.array([300, 5, 41, 77, 5])]
+    for ids in lists:
+        ids = torch.from_numpy(np.asarray(ids, np.int64)).to(cuda_device)
+        assert torch.equal(hog.hog_responses(*flat, cells, ids),
+                           hog.hog_responses(*flat, cells, ids, impl="ref"))
 
 
 @pytest.mark.cuda
