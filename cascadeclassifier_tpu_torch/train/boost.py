@@ -18,8 +18,14 @@ isErrDesired (boost.cpp:479-518).
 
 Weak trees of max_depth > 1 grow by recursive masked splits (node masks
 replace the reference's index-partitioning split_node_data): the same split
-kernels run under each node's mask. Ported: every boost type at any depth;
-a device mesh raises NotImplementedError.
+kernels run under each node's mask.
+
+On a ``FeatureMesh`` (parallel/sharded.py) every block's feature rows are
+cut into shards, each on its own device (or, on a process mesh, each in
+its own process): every shard sorts and splits its rows, and the best of
+each block over its shards, ties to the lowest global index, goes into
+the same walk over blocks. A feature's split arithmetic never crosses
+rows, so a sharded stage is the unsharded stage bit for bit.
 """
 
 from __future__ import annotations
@@ -38,6 +44,14 @@ from cascadeclassifier_tpu_torch.models.model import (
     BOOST_RAB,
     Stage,
     WeakTree,
+)
+from cascadeclassifier_tpu_torch.parallel.sharded import (
+    FeatureMesh,
+    first_best,
+    gather_records,
+    on_device,
+    pad_rows,
+    shard_span,
 )
 from cascadeclassifier_tpu_torch.train.cat_split import categorical_class_split, categorical_split
 from cascadeclassifier_tpu_torch.train.split import (
@@ -83,10 +97,10 @@ class BoostParams:
     min_sample_count: int = 10
 
 
-def check_supported(params: BoostParams, mesh=None):
-    """Raise NotImplementedError for what the port does not train."""
-    if mesh is not None:
-        raise NotImplementedError("the port trains on one device: no mesh")
+def check_mesh(mesh):
+    """Raise TypeError unless mesh is None or a FeatureMesh."""
+    if mesh is not None and not isinstance(mesh, FeatureMesh):
+        raise TypeError(f"mesh must be a parallel.sharded.FeatureMesh, got {type(mesh).__name__}")
 
 
 class FeatureCache:
@@ -103,11 +117,21 @@ class FeatureCache:
     Sorted views are (N, B): resident blocks are stored contiguous, a
     block sorted anew is the transposed view of ``torch.sort``'s (B, N)
     outputs; the split kernel takes either by its strides. A categorical
-    evaluator (LBP codes) keeps no sort machinery."""
+    evaluator (LBP codes) keeps no sort machinery.
+
+    ``mesh``: a FeatureMesh; every block's rows are held as the mesh's
+    local shards (``shard_span``: ⌈B/S⌉ rows each, zero-padded), each on
+    its device. In-process the block is evaluated once and its rows
+    split; on a process mesh a rank evaluates its own rows only
+    (``values_for_vars``). Without a mesh a block is one shard. Lists
+    ``values``, ``vs`` and ``order`` hold, per block, each local shard's."""
 
     def __init__(self, evaluator, val_buf_mb: float | None = None,
-                 idx_buf_mb: float | None = None):
+                 idx_buf_mb: float | None = None, mesh: FeatureMesh | None = None):
         self.ev = evaluator
+        self.mesh = mesh
+        self.shards = [0] if mesh is None else mesh.local_shards
+        self.devices = [evaluator.device] if mesh is None else mesh.devices
         nb = evaluator.num_blocks()
         n = evaluator.n
         blk = evaluator.block_size
@@ -124,70 +148,130 @@ class FeatureCache:
             self.n_idx = 0
         self.n_idx = min(self.n_idx, self.n_val)
         self.num_blocks = nb
-        self.values = [None] * nb  # (B, N) f32
-        self.vs = [None] * nb  # (N, B) sorted values, resident blocks
-        self.order = [None] * nb  # (N, B) stable sort order, resident blocks
+        k = len(self.shards)
+        self.values = [[None] * k for _ in range(nb)]  # (P, N) f32 rows, or int32 codes
+        self.vs = [[None] * k for _ in range(nb)]  # (N, P) sorted values, resident blocks
+        self.order = [[None] * k for _ in range(nb)]  # (N, P) stable sort order, resident
         for b in range(nb):
             if b < self.n_val:
-                self.values[b] = evaluator.values_block(b)
+                self.values[b] = self._evaluate(b)
             if b < self.n_idx:
-                self.order[b], self.vs[b] = (x.contiguous() for x in self.sorted_block(b))
+                for s in range(k):
+                    self.order[b][s], self.vs[b][s] = (
+                        x.contiguous() for x in self.sorted_block(b, s))
         self.valid_sorted = None
         self.aux_sorted = None
 
-    def block_values(self, b):
-        """Raw (B, N) values of block b, resident or recomputed."""
-        if self.values[b] is not None:
-            return self.values[b]
-        return self.ev.values_block(b)
+    def span(self, b, k=0):
+        """(global index of local shard k's first row of block b, its real
+        rows); the rest of its ⌈B/S⌉ rows are padding."""
+        lo, hi = self.ev.block_slice(b)
+        if self.mesh is None:
+            return lo, hi - lo
+        first, n, _per = shard_span(hi - lo, self.mesh.size, self.shards[k])
+        return lo + first, n
 
-    def sorted_block(self, b):
-        """(sort order, sorted values) of block b by a stable sort, both
-        (N, B); resident blocks keep theirs, others are views of the
-        sort's outputs."""
-        if self.order[b] is not None:
-            return self.order[b], self.vs[b]
-        vs, si = torch.sort(self.block_values(b), dim=1, stable=True)
+    def _evaluate(self, b):
+        """Block b's rows of every local shard, zero-padded, on its device."""
+        if self.mesh is None:
+            return [self.ev.values_block(b)]
+        lo, hi = self.ev.block_slice(b)
+        _first, _n, per = shard_span(hi - lo, self.mesh.size, 0)
+        if self.mesh.group is None:
+            full = self.ev.values_block(b)
+            out = []
+            for k, dev in enumerate(self.devices):
+                a, n = self.span(b, k)
+                out.append(pad_rows(full[a - lo:a - lo + n], per).to(dev))
+            return out
+        a, n = self.span(b)
+        if n:
+            rows = self.ev.values_for_vars(np.arange(a, a + n))
+        else:
+            rows = torch.zeros((0, self.ev.n), dtype=torch.int32 if self.categorical
+                               else torch.float32, device=self.ev.device)
+        return [pad_rows(rows, per).to(self.devices[0])]
+
+    def block_values(self, b, k=0):
+        """Raw (P, N) values of local shard k of block b (without a mesh,
+        the (B, N) block), resident or recomputed."""
+        if self.values[b][k] is not None:
+            return self.values[b][k]
+        return self._evaluate(b)[k]
+
+    def sorted_block(self, b, k=0, values=None):
+        """(sort order, sorted values) of local shard k of block b (of
+        ``values``, its rows, when given) by a stable sort, both (N, P);
+        resident blocks keep theirs, others are views of the sort's
+        outputs."""
+        if self.order[b][k] is not None:
+            return self.order[b][k], self.vs[b][k]
+        vs, si = torch.sort(self.block_values(b, k) if values is None else values, dim=1,
+                            stable=True)
         return si.t(), vs.t()
+
+    def shard_inputs(self, b):
+        """What the split kernel takes of each local shard of block b: the
+        codes (categorical) or the (sort order, sorted values), resident
+        or computed now (one evaluation of the block for every shard)."""
+        fresh = None
+        out = []
+        for k in range(len(self.shards)):
+            vals = self.values[b][k]
+            if vals is None and (self.categorical or self.order[b][k] is None):
+                if fresh is None:
+                    fresh = self._evaluate(b)
+                vals = fresh[k]
+            out.append(vals if self.categorical else self.sorted_block(b, k, vals))
+        return out
+
+    def resident_row(self, var_idx: int):
+        """The values of feature var_idx from a resident local shard, or
+        None."""
+        b = var_idx // self.ev.block_size
+        for k in range(len(self.shards)):
+            first, n = self.span(b, k)
+            if first <= var_idx < first + n and self.values[b][k] is not None:
+                return self.values[b][k][var_idx - first]
+        return None
 
     def set_stage(self, valid, aux):
         """Per-stage sorted views of validity (bool) and the responses (f32:
-        GAB targets are exactly ±1) for the resident blocks, which
+        GAB targets are exactly ±1) for the resident blocks' shards, which
         fast_inputs reads; nothing for a categorical evaluator."""
         if self.categorical:
             return
-        dev = self.ev.device
-        vj = torch.as_tensor(valid, device=dev)
-        aj = torch.as_tensor(np.asarray(aux, np.float32), device=dev)
-        self.valid_sorted = [None] * self.num_blocks
-        self.aux_sorted = [None] * self.num_blocks
-        for b in range(self.num_blocks):
-            if self.order[b] is not None:
-                self.valid_sorted[b] = vj[self.order[b]]
-                self.aux_sorted[b] = aj[self.order[b]]
-
-    def var_base(self, b):
-        return self.ev.block_slice(b)[0]
+        self.valid_sorted = [[None] * len(self.shards) for _ in range(self.num_blocks)]
+        self.aux_sorted = [[None] * len(self.shards) for _ in range(self.num_blocks)]
+        for k, dev in enumerate(self.devices):
+            vj = torch.as_tensor(valid, device=dev)
+            aj = torch.as_tensor(np.asarray(aux, np.float32), device=dev)
+            for b in range(self.num_blocks):
+                if self.order[b][k] is not None:
+                    self.valid_sorted[b][k] = vj[self.order[b][k]]
+                    self.aux_sorted[b][k] = aj[self.order[b][k]]
 
 
-def fast_inputs(cache: FeatureCache, b: int, w_dev, wthr: float):
-    """split_scan's inputs of a resident block at a tree root, where the
-    subsample is valid & (w >= wthr) (boost.py:527 _block_split_fast): the
-    weights carried into each feature's order, kept = sorted validity &
-    the trim threshold, rs = ws · the sorted ±1 targets (after
-    cache.set_stage). They equal generic_inputs' there, and the gathered
-    form split_scan_gather computes the same split from the sort order."""
-    ws_raw = w_dev[cache.order[b]]
-    kept = cache.valid_sorted[b] & (ws_raw >= wthr)
+def fast_inputs(cache: FeatureCache, b: int, w_dev, wthr: float, k: int = 0):
+    """split_scan's inputs of local shard k of a resident block at a tree
+    root, where the subsample is valid & (w >= wthr) (boost.py:527
+    _block_split_fast): the weights carried into each feature's order,
+    kept = sorted validity & the trim threshold, rs = ws · the sorted ±1
+    targets (after cache.set_stage). They equal generic_inputs' there,
+    and the gathered form split_scan_gather computes the same split from
+    the sort order."""
+    ws_raw = w_dev[cache.order[b][k]]
+    kept = cache.valid_sorted[b][k] & (ws_raw >= wthr)
     ws = torch.where(kept, ws_raw, 0.0)
-    return cache.vs[b], ws, ws * cache.aux_sorted[b], kept
+    return cache.vs[b][k], ws, ws * cache.aux_sorted[b][k], kept
 
 
-def generic_inputs(cache: FeatureCache, b: int, w_dev, resp_dev, mask_dev):
-    """split_scan's inputs of any block under any mask (boost.py:129
-    _ordered_split_block): the sorted values, contiguous (N, B), and the
-    masked weights and weight·responses gathered into the sort order."""
-    order, vs = cache.sorted_block(b)
+def generic_inputs(cache: FeatureCache, b: int, w_dev, resp_dev, mask_dev, k: int = 0):
+    """split_scan's inputs of local shard k of any block under any mask
+    (boost.py:129 _ordered_split_block): the sorted values, contiguous
+    (N, P), and the masked weights and weight·responses gathered into the
+    sort order."""
+    order, vs = cache.sorted_block(b, k)
     wm = torch.where(mask_dev, w_dev, 0.0)
     return (vs.contiguous(), *gather_inputs(order, wm, wm * resp_dev, mask_dev))
 
@@ -203,15 +287,19 @@ def best_of_block(q):
 class StageTrainer:
     """Trains one boosted stage; mirrors CvCascadeBoost::train
     (boost.cpp:409-459). val_buf_mb / idx_buf_mb: precalc buffer budgets
-    (-precalcValBufSize / -precalcIdxBufSize)."""
+    (-precalcValBufSize / -precalcIdxBufSize). mesh: a FeatureMesh over
+    whose shards every block's features are split (FeatureCache); on a
+    process mesh every rank runs the same trainer, and each split search
+    makes one all_gather."""
 
     def __init__(self, evaluator, params: BoostParams, val_buf_mb: float | None = None,
-                 idx_buf_mb: float | None = None):
-        check_supported(params)
+                 idx_buf_mb: float | None = None, mesh: FeatureMesh | None = None):
+        check_mesh(mesh)
         self.ev = evaluator
         self.params = params
         self.val_buf_mb = val_buf_mb
         self.idx_buf_mb = idx_buf_mb
+        self.mesh = mesh
         self.categorical = evaluator.maxCatCount > 0
         self.classifier = params.boost_type in (BOOST_DAB, BOOST_RAB)
 
@@ -229,56 +317,73 @@ class StageTrainer:
         masked weights and weight·responses (regression) or the masked
         weights of each class (DAB, RAB); the totals are summed once, in
         the original sample order (f64 summation order is part of the
-        arithmetic being replicated)."""
-        dev = self.ev.device
-        mask_dev = torch.as_tensor(mask, device=dev)
+        arithmetic being replicated).
+
+        Each local shard of each block gives a record (its first maximum,
+        the feature's global index, the threshold or the 8 subset words,
+        all f64, exact); padding rows never win. The records come to the
+        host in one fetch a device (one all_gather on a process mesh),
+        and the first maximum over blocks and their shards in global
+        order is the split: earlier features win ties (the ascending
+        feature scan)."""
         wm = np.where(mask, w, 0.0)
         if self.classifier:
             w0, w1 = np.where(self._cls == 0, wm, 0.0), np.where(self._cls == 1, wm, 0.0)
             total_a = tree_sum(w0)
             total_b = tree_sum(wm) - total_a
-            ta, tb = torch.as_tensor(w0, device=dev), torch.as_tensor(w1, device=dev)
             use_gini = self.params.boost_type == BOOST_RAB
         else:
             total_a, total_b = tree_sum(wm), tree_sum(wm * resp)
-            ta = torch.where(mask_dev, torch.as_tensor(w, dtype=torch.float64, device=dev), 0.0)
-            tb = ta * torch.as_tensor(resp, dtype=torch.float64, device=dev)
-        qs, ids, pays = [], [], []
-        for b in range(cache.num_blocks):
-            if self.categorical:
-                codes = cache.block_values(b)
+        tables = {}
+
+        def tables_on(dev):
+            """The per-sample tables and mask on dev, built once a search."""
+            if dev not in tables:
+                mask_dev = torch.as_tensor(mask, device=dev)
                 if self.classifier:
-                    q, pay = categorical_class_split(codes, ta, tb, use_gini)
+                    ta, tb = torch.as_tensor(w0, device=dev), torch.as_tensor(w1, device=dev)
                 else:
-                    q, pay = categorical_split(codes, ta, tb)
-            else:
-                order, vs = cache.sorted_block(b)
-                if self.classifier:
-                    q, pay = split_scan_class_gather(vs, order, ta, tb, mask_dev, total_a,
-                                                     total_b, use_gini)
-                else:
-                    q, pay = split_scan_gather(vs, order, ta, tb, mask_dev, total_a, total_b)
-            qm, i = best_of_block(q)
-            qs.append(qm)
-            ids.append(i)
-            pays.append(pay[i])
-        qs = torch.stack(qs).cpu().numpy()  # one fetch for every block
-        ids = torch.stack(ids).cpu().numpy()
-        pays = torch.stack(pays).cpu().numpy()
-        best_q, best = -np.inf, None
+                    ta = torch.where(mask_dev, torch.as_tensor(w, dtype=torch.float64,
+                                                               device=dev), 0.0)
+                    tb = ta * torch.as_tensor(resp, dtype=torch.float64, device=dev)
+                tables[dev] = ta, tb, mask_dev
+            return tables[dev]
+
+        records = [[] for _ in cache.shards]
         for b in range(cache.num_blocks):
-            # strict >: earlier blocks win ties (the ascending feature scan)
-            if np.isfinite(qs[b]) and qs[b] > best_q:
-                best_q = float(qs[b])
-                pay = pays[b] if self.categorical else np.float32(pays[b])
-                best = (cache.var_base(b) + int(ids[b]), pay)
-        return best
+            for k, inputs in enumerate(cache.shard_inputs(b)):
+                dev = cache.devices[k]
+                ta, tb, mask_dev = tables_on(dev)
+                with on_device(dev):
+                    if self.categorical and self.classifier:
+                        q, pay = categorical_class_split(inputs, ta, tb, use_gini)
+                    elif self.categorical:
+                        q, pay = categorical_split(inputs, ta, tb)
+                    elif self.classifier:
+                        q, pay = split_scan_class_gather(inputs[1], inputs[0], ta, tb, mask_dev,
+                                                         total_a, total_b, use_gini)
+                    else:
+                        q, pay = split_scan_gather(inputs[1], inputs[0], ta, tb, mask_dev,
+                                                   total_a, total_b)
+                    first, real = cache.span(b, k)
+                    if real < q.shape[0]:
+                        q[real:] = float("-inf")  # padding rows never win
+                    qm, i = best_of_block(q)
+                    records[k].append(torch.cat([qm.reshape(1), (first + i).double().reshape(1),
+                                                 pay[i].double().reshape(-1)]))
+        recs = gather_records(self.mesh, [torch.stack(r) for r in records])  # (S, blocks, K)
+        best = first_best(recs.transpose(1, 0, 2).reshape(-1, recs.shape[2]))
+        if not np.isfinite(best[0]):
+            return None
+        pay = best[2:].astype(np.int32) if self.categorical else np.float32(best[2])
+        return int(best[1]), pay
 
     def _values_of_var(self, cache, var_idx: int) -> np.ndarray:
-        b = var_idx // self.ev.block_size
-        if cache.values[b] is not None:
-            row = cache.values[b][var_idx - cache.var_base(b)]
-        else:
+        """A feature's values: from the local shard that holds them when it
+        is resident, else evaluated (on a process mesh, also where another
+        rank holds them)."""
+        row = cache.resident_row(var_idx)
+        if row is None:
             row = self.ev.values_for_vars([var_idx])[0]
         return row.cpu().numpy()
 
@@ -376,7 +481,8 @@ class StageTrainer:
         self._valid = valid
         self._cls = labels.astype(np.int32)
         t0 = time.time()
-        cache = FeatureCache(self.ev, val_buf_mb=self.val_buf_mb, idx_buf_mb=self.idx_buf_mb)
+        cache = FeatureCache(self.ev, val_buf_mb=self.val_buf_mb, idx_buf_mb=self.idx_buf_mb,
+                             mesh=self.mesh)
         if verbose:
             print(f"Precalculation time: {int(time.time() - t0)}")
 

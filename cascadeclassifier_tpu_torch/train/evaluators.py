@@ -108,7 +108,7 @@ class HaarTrainEvaluator:
         self._offsets = torch.from_numpy(catalog.corner_offsets()).to(self.device)
         self._weights = torch.from_numpy(catalog.weights).to(self.device)
         self._tilted = torch.from_numpy(catalog.tilted).to(self.device)
-        self.num_features = len(catalog)
+        self.num_features = self.var_count = len(catalog)
         self.n = 0
 
     def set_samples(self, samples):
@@ -175,7 +175,7 @@ class LBPTrainEvaluator:
         self.win_w, self.win_h = catalog.win_w, catalog.win_h
         self.p = (catalog.win_w + 1) * (catalog.win_h + 1)
         self._cell_rects = torch.from_numpy(catalog.cell_rects()).to(self.device)
-        self.num_features = len(catalog)
+        self.num_features = self.var_count = len(catalog)
         self.n = 0
 
     def set_samples(self, samples):

@@ -17,9 +17,12 @@ with the same stdout transcript. Replicates the reference training loop
     (cascadeclassifier.cpp:566-578), optional legacy Haar format
 
 Ported: Haar (BASIC, CORE, ALL), LBP and HOG features, DAB, RAB, LB and
-GAB weak trees of any depth. ``load`` reads any checkpoint; a mesh raises
-NotImplementedError. The trainer runs on ``device`` ("cuda" unless the
-caller asks for the CPU).
+GAB weak trees of any depth. ``load`` reads any checkpoint. The trainer
+runs on ``device`` ("cuda" unless the caller asks for the CPU); with a
+``mesh`` (parallel/sharded.py::FeatureMesh) each stage's split search is
+sharded over its features (train/boost.py). On a process mesh every rank
+runs the whole trainer, mining included, and returns the same model;
+rank 0 alone writes files.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ from cascadeclassifier_tpu_torch.models.xml_io import (
     write_stage_xml,
 )
 from cascadeclassifier_tpu_torch.ops.features import HOG_FEAT_SIZE, haar_mode_id
-from cascadeclassifier_tpu_torch.train.boost import BoostParams, StageTrainer, check_supported
+from cascadeclassifier_tpu_torch.train.boost import BoostParams, StageTrainer, check_mesh
 from cascadeclassifier_tpu_torch.train.evaluators import make_evaluator
 from cascadeclassifier_tpu_torch.train.predictor import CascadePredictor
 from cascadeclassifier_tpu_torch.utils.profiling import timed
@@ -76,7 +79,9 @@ class CascadeTrainer:
         -precalcValBufSize / -precalcIdxBufSize CLI flags (reference
         traincascade.cpp:44-49 defaults 1024 MB each; semantics
         o_cvcascadeboosttraindata.cpp:250-264). device: where features are
-        evaluated, sorted and split; "cuda" raises without a CUDA device."""
+        evaluated and samples mined; "cuda" raises without a CUDA device.
+        mesh: a FeatureMesh whose shards sort and split the features
+        (on a process mesh, ``device`` is the rank's own)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CascadeTrainer(device='cuda') needs a CUDA device; "
@@ -88,13 +93,16 @@ class CascadeTrainer:
         self.mining_batch = mining_batch
         self.precalc_val_mb = precalc_val_mb
         self.precalc_idx_mb = precalc_idx_mb
+        check_mesh(mesh)
         self.mesh = mesh
-        self._check_supported()
         self._evaluator = None
         self.stages = []  # stages with GLOBAL feature indices
 
-    def _check_supported(self):
-        check_supported(self.boost, self.mesh)
+    @property
+    def writes(self) -> bool:
+        """Whether this process writes the checkpoints and the cascade:
+        rank 0 of a process mesh, always otherwise."""
+        return self.mesh is None or self.mesh.rank == 0
 
     @property
     def max_cat_count(self) -> int:
@@ -329,12 +337,12 @@ class CascadeTrainer:
         verbose=True,
     ):
         t_start = time.time()
-        os.makedirs(data_dir, exist_ok=True)
+        if self.writes:
+            os.makedirs(data_dir, exist_ok=True)
         resumed = self.load(data_dir)
         if resumed and verbose:
             print("Training parameters are pre-loaded from the parameter "
                   "file in data folder!")
-        self._check_supported()
         pos = PosReader(vec_path, self.win_w, self.win_h)
         # lazy: levels materialize on the host only for accepted-window
         # crops; dense mining builds them on the device from the source
@@ -424,6 +432,7 @@ class CascadeTrainer:
                     self.evaluator, p,
                     val_buf_mb=self.precalc_val_mb,
                     idx_buf_mb=self.precalc_idx_mb,
+                    mesh=self.mesh,
                 ).train(labels, valid=valid, verbose=verbose)
             if verbose:
                 print("END>")
@@ -431,18 +440,19 @@ class CascadeTrainer:
                 break
             self.stages.append(stage)
 
-            if si == 0:
-                write_params_xml(
-                    self._to_model(compact=False),
-                    os.path.join(data_dir, "params.xml"),
-                    node_name="params",
+            if self.writes:
+                if si == 0:
+                    write_params_xml(
+                        self._to_model(compact=False),
+                        os.path.join(data_dir, "params.xml"),
+                        node_name="params",
+                    )
+                write_stage_xml(
+                    stage,
+                    self.max_cat_count > 0,
+                    os.path.join(data_dir, f"stage{si}.xml"),
+                    node_name=f"stage{si}",
                 )
-            write_stage_xml(
-                stage,
-                self.max_cat_count > 0,
-                os.path.join(data_dir, f"stage{si}.xml"),
-                node_name=f"stage{si}",
-            )
             if verbose:
                 dt = int(time.time() - t_start)
                 print(
@@ -457,6 +467,8 @@ class CascadeTrainer:
             return None
 
         model = self._to_model(compact=True)
+        if not self.writes:
+            return model
         write_cascade_xml(model, os.path.join(data_dir, "cascade.xml"))
         if base_format_save:
             write_legacy_haar_xml(

@@ -208,6 +208,39 @@ Deep weak trees and HOG, on (s)'s data:
                 (hog_eval's plan and gather launches apart) and on the
                 detector's batch (hog_eval's direct gather)
 
+Multi-device training and the tools, on (s)'s data (parallel/, tools/):
+
+  (w) mesh      Check 1: sharded_ordered_best_split over 4 in-process
+                shards on cuda:0 (8192 rows each) equals split_scan_gather
+                + best_of_block over stage 0's first block (32768 features
+                x 3072 samples) bit for bit, at uniform and at reweighted
+                weights, the kernel launched once a shard; the sharded
+                search timed. Check 2: stage 0 at 1000 + 2000 samples with
+                CascadeTrainer(mesh=4 shards on cuda:0) writes the
+                unsharded run's stage0.xml byte for byte, for Haar GAB
+                (split_scan_gather), LBP GAB (cat_split) and Haar DAB at
+                depth 2 (split_scan_class_gather under node masks); each
+                kernel's launches; s/stage sharded and unsharded beside
+                the card's name and power limit (a record: 4 shards on one
+                card only add launches). Check 3: two processes on cuda:0
+                joined by gloo (parallel/dryrun.py --what train) return the
+                one-process stage; rank 0 writes its stage0.xml byte for
+                byte, rank 1 writes nothing. Check 4: a one-rank NCCL group
+                combines CUDA records into check 1's split. Check 5:
+                dryrun_multichip(8) with its 8 shards on the card
+  (x) tools     Check 1: torch-traincascade's main trains 2 stages on the
+                card (-maxFalseAlarmRate 0.1: with the default 0.5 the
+                leaf target 0.5^2 ends the run at stage 1's first
+                windows); its cascade.xml loads, and make_detector's rects on
+                a 1080p clutter frame equal the plain-version path's.
+                Check 2: torch-detect's main on synth frame 0 (frontal
+                face, sf 1.1, minNeighbors 3, f64 sums) prints the rects
+                of data/smoke_golden_1080p.json; a HOG cascade goes to
+                HOGDetector through hog_hist and hog_eval. Check 3:
+                utils/profiling.py's trace() around one frame writes a
+                Chrome trace holding its annotate() range and the front's
+                tile_kernel
+
 and last, per kernel at its path's shapes: time against its twin, the
 least time the card could take (bytes over 3.35 TB/s or operations over
 67 TFLOP/s, the H100 SXM's published rates), and one PyTorch call that
@@ -881,6 +914,12 @@ def main():
     deep_phase(dev, vec, bg, launches, values_extra)
     hog_phase(dev, vec, bg, timed, work, errs, launches, timed_extra, values_extra)
 
+    # ------------------------------------------------------------------
+    # (w) multi-device training, (x) the command-line tools and traces
+    multi_device_phase(dev, vec, bg, values_extra)
+    tools_phase(dev, vec, bg, os.path.join(data, "haarcascade_frontalface_alt.xml"), frames[0],
+                golden, values_extra)
+
     meta = {
         "integral": ("cascadeclassifier_tpu_torch/csrc/integral.cu",
                      "cascadeclassifier_tpu/detect/pallas_integral.py:50"),
@@ -1110,7 +1149,7 @@ def training_phase(dev, timed, work, errs, launches, timed_extra):
                   f"split inputs of block {b}, iteration {it}: fast and generic paths differ")
             vs_bn, si_bn = torch.sort(cache.block_values(b), dim=1, stable=True)
             tables = (wm_dev, rm_dev, m_dev, tw, trr)
-            gathered = {"resident": (cache.vs[b], cache.order[b]),  # contiguous (N, B)
+            gathered = {"resident": (cache.vs[b][0], cache.order[b][0]),  # contiguous (N, B)
                         "fresh": (vs_bn.t(), si_bn.t())}  # views of the sort's (B, N)
             check(all(torch.equal(x, y) for x, y in zip(gathered["resident"],
                                                          gathered["fresh"])),
@@ -1811,8 +1850,6 @@ def hog_phase(dev, vec, bg, timed, work, errs, launches, timed_extra, values_ext
     """(v): HOG on (s)'s data: the two kernels on stage 0's samples and the
     edge windows, 3 stages of HOG training, detection with the trained
     cascade at 1080p; see the module docstring."""
-    import shutil
-
     from cascadeclassifier_tpu_torch import _build
     from cascadeclassifier_tpu_torch.data.negreader import NegReader
     from cascadeclassifier_tpu_torch.data.vec import PosReader
@@ -1986,8 +2023,314 @@ def hog_phase(dev, vec, bg, timed, work, errs, launches, timed_extra, values_ext
     values_extra["hog_eval"]["vars_detector_batch"] = int(used.numel())
     print(f"(v) check 4: hog_hist and hog_eval ({used.numel()} used variables) on the detector's"
           f" first batch of {nb} windows at 24x24 equal to their plain versions", flush=True)
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     print(f"(v) phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+N_POS, N_NEG = 1000, 2000  # the samples of a stage in (w) and (x), as in (s)
+
+
+def stage0_samples(dev, vec, bg, evaluator):
+    """Stage 0's samples of (s)'s data (N_POS positives + N_NEG negatives,
+    padded to a multiple of 256 as the trainer pads them) set on evaluator
+    → (labels, valid)."""
+    from cascadeclassifier_tpu_torch.data.negreader import NegReader
+    from cascadeclassifier_tpu_torch.data.vec import PosReader
+    from cascadeclassifier_tpu_torch.train.trainer import CascadeTrainer
+
+    tr = CascadeTrainer(device=dev)
+    pos = tr._fill_positives(PosReader(vec, 24, 24), N_POS, [0])
+    neg = tr._fill_negatives(NegReader(bg, 24, 24, lazy=True), N_NEG, 0.0, [0])
+    n = N_POS + N_NEG
+    n_pad = -(-n // 256) * 256
+    evaluator.set_samples(np.concatenate([pos, neg, np.zeros((n_pad - n, 24, 24), np.uint8)]))
+    labels = np.concatenate([np.ones(N_POS, np.int32), np.zeros(n_pad - N_POS, np.int32)])
+    return labels, np.arange(n_pad) < n
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def train_stage0(tag: str, dev, vec, bg, mesh=None, **kw):
+    """Stage 0 trained at N_POS + N_NEG samples on dev, over mesh when given
+    → (stage0.xml bytes, the seconds its phases took, the kernels'
+    launches in the run)."""
+    from cascadeclassifier_tpu_torch import _build
+    from cascadeclassifier_tpu_torch.train.trainer import CascadeTrainer
+    from cascadeclassifier_tpu_torch.utils.profiling import reset_timings, timings
+
+    d = os.path.join(TRAIN_DIR, tag)
+    reset_timings()
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    CascadeTrainer(device=dev, mesh=mesh, **kw).train(d, vec, bg, num_pos=N_POS, num_neg=N_NEG,
+                                                      num_stages=1, verbose=False)
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    with open(os.path.join(d, "stage0.xml"), "rb") as f:
+        return f.read(), {k: v[0] for k, v in timings().items()}, counts
+
+
+def multi_device_phase(dev, vec, bg, values_extra):
+    """(w): the feature-sharded split search and trainer over 4 shards on
+    the card, two processes joined by gloo, a one-rank NCCL group and the
+    dry run; see the module docstring."""
+    import subprocess
+
+    from cascadeclassifier_tpu_torch import _build
+    from cascadeclassifier_tpu_torch.models.model import BOOST_DAB, FEATURE_LBP
+    from cascadeclassifier_tpu_torch.ops.features import haar_catalog
+    from cascadeclassifier_tpu_torch.parallel.dryrun import dryrun_multichip
+    from cascadeclassifier_tpu_torch.parallel.sharded import (
+        init_distributed,
+        make_mesh,
+        process_mesh,
+        shard_features,
+        sharded_ordered_best_split,
+    )
+    from cascadeclassifier_tpu_torch.train.boost import BoostParams, best_of_block
+    from cascadeclassifier_tpu_torch.train.evaluators import HaarTrainEvaluator
+    from cascadeclassifier_tpu_torch.train.split import split_scan_gather, tree_sum
+
+    t0 = time.perf_counter()
+    smi = gpu_info()
+    mesh = make_mesh(4, devices=[dev] * 4)
+
+    # -- check 1: the sharded split search on a real stage-0 block
+    ev = HaarTrainEvaluator(haar_catalog(24, 24, "BASIC"), device=dev)
+    labels, valid = stage0_samples(dev, vec, bg, ev)
+    values = ev.values_block(0)
+    vs_bn, si_bn = torch.sort(values, dim=1, stable=True)
+    resp = labels * 2.0 - 1.0
+    rng = np.random.default_rng(11)
+    answers = {}
+    for name, w in (("uniform", np.where(valid, 1.0 / valid.sum(), 0.0)),
+                    ("reweighted", np.where(valid, rng.uniform(0.2, 1.0, valid.size), 0.0))):
+        wm = np.where(valid, w, 0.0)
+        tw, tr = tree_sum(wm), tree_sum(wm * resp)
+        q, thr = split_scan_gather(vs_bn.t(), si_bn.t(), torch.as_tensor(wm, device=dev),
+                                   torch.as_tensor(wm * resp, device=dev),
+                                   torch.as_tensor(valid, device=dev), tw, tr)
+        qm, i = best_of_block(q)
+        want = (float(qm), int(i), np.float32(thr[i].item()))
+        vs, si = shard_features(mesh, values, si_bn)
+        fn = sharded_ordered_best_split(mesh)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        got = fn(vs, si, w, resp, valid)
+        n_launch = _build.LAUNCHES["split_scan_gather"]
+        check(got == want, f"(w) check 1 ({name}): sharded split {got} != one block's {want}")
+        check(n_launch >= 4, f"(w) check 1: split_scan_gather launched {n_launch} times, not "
+                             f"once a shard")
+        answers[name] = (want, fn, (vs, si, w, resp, valid))
+        print(f"(w) check 1 ({name} weights): the split over 4 shards of 8192 rows on {dev} "
+              f"equals split_scan_gather + best_of_block over block 0 (32768 features x "
+              f"{valid.size} samples) bit for bit: quality {want[0]!r}, feature {want[1]}, "
+              f"threshold {float(want[2])!r}; split_scan_gather launched {n_launch} times",
+              flush=True)
+    want, fn, args = answers["reweighted"]
+    values_extra["split_scan_gather"].update({
+        "launches_sharded_split": n_launch,
+        "ms_sharded_split_4_shards": cuda_ms(lambda: fn(*args), 10)})
+    print(f"(w) check 1: the sharded search (4 shards, the combine on the host) "
+          f"{values_extra['split_scan_gather']['ms_sharded_split_4_shards']:.4f} ms ({smi})",
+          flush=True)
+
+    # -- check 2: stage 0 over 4 shards on the card = the unsharded stage 0,
+    # trained in the order unsharded, sharded, sharded, unsharded
+    runs = (("haar", "split_scan_gather", {}),
+            ("lbp", "cat_split", dict(feature_type=FEATURE_LBP)),
+            ("dab_d2", "split_scan_class_gather",
+             dict(boost=BoostParams(boost_type=BOOST_DAB, max_depth=2))))
+    unsharded = {}
+    for tag, kernel, kw in runs:
+        xml, times = {}, {"one": [], "four": []}
+        for k, (name, m) in enumerate((("one", None), ("four", mesh), ("four", mesh),
+                                       ("one", None))):
+            got, t, counts = train_stage0(f"w_{tag}_{k}", dev, vec, bg, mesh=m, **kw)
+            check(xml.setdefault("stage0", got) == got,
+                  f"(w) check 2 ({tag}): stage0.xml of run {k} ({name}) differs from run 0's")
+            times[name].append(t)
+            if m is not None:
+                n_launch = counts.get(kernel, 0)
+                check(n_launch >= 4, f"(w) check 2 ({tag}): {kernel} launched {n_launch} times")
+        one = unsharded[tag] = xml["stage0"]
+        values_extra.setdefault(kernel, {})[f"launches_sharded_stage0_{tag}"] = n_launch
+
+        def fmt(ts):
+            return " / ".join(f"{sum(t.values()):.3f} (train_stage {t['train_stage']:.3f})"
+                              for t in ts)
+
+        print(f"(w) check 2 ({tag}): stage 0 at {N_POS} + {N_NEG} samples over 4 shards on {dev}: "
+              f"stage0.xml byte-identical to the unsharded run's ({len(one)} bytes, "
+              f"{one.count(b'<internalNodes>')} trees), {kernel} launched {n_launch} times; "
+              f"s/stage sharded {fmt(times['four'])}, unsharded {fmt(times['one'])} ({smi})",
+              flush=True)
+
+    # -- check 3: two processes on the card, joined by gloo
+    t3 = time.perf_counter()
+    coord = f"127.0.0.1:{free_port()}"
+    reports = [os.path.join(TRAIN_DIR, f"w_rank{i}.json") for i in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "cascadeclassifier_tpu_torch.parallel.dryrun", "--rank", str(i),
+         "--world", "2", "--coordinator", coord, "--out", reports[i], "--device", str(dev),
+         "--backend", "gloo", "--what", "train", "--vec", vec, "--bg", bg, "--num-pos",
+         str(N_POS), "--num-neg", str(N_NEG), "--data", os.path.join(TRAIN_DIR, f"w_rank{i}")],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for i in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    check(all(p.returncode == 0 for p in procs), "(w) check 3: a rank failed:\n" + "\n".join(logs))
+    stages = []
+    for path in reports:
+        with open(path) as f:
+            stages.append(json.load(f)["stage0_xml"].encode())
+    with open(os.path.join(TRAIN_DIR, "w_rank0", "stage0.xml"), "rb") as f:
+        written = f.read()
+    check(written == unsharded["haar"] and stages == [written, written],
+          "(w) check 3: the two ranks' stage 0 differs from the one-process stage0.xml")
+    check(not os.path.exists(os.path.join(TRAIN_DIR, "w_rank1")), "(w) check 3: rank 1 wrote")
+    print(f"(w) check 3: two processes on {dev} joined by gloo train stage 0: both return the "
+          f"one-process stage, rank 0 writes its stage0.xml byte for byte, rank 1 writes "
+          f"nothing; {time.perf_counter() - t3:.1f} s", flush=True)
+
+    # -- check 4: a one-rank NCCL group combines on the card
+    want, _fn, (vs, si, w, resp, valid) = answers["reweighted"]
+    nccl = init_distributed(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl", device=dev)
+    with process_mesh(nccl):
+        got = sharded_ordered_best_split(nccl)(values, si_bn, w, resp, valid)
+    check(got == want, f"(w) check 4: the NCCL combine {got} != {want}")
+    print(f"(w) check 4: a one-rank NCCL group's all_gather of CUDA records gives check 1's "
+          f"split", flush=True)
+
+    # -- check 5: the dry run
+    out = dryrun_multichip(8)
+    print(f"(w) check 5: dryrun_multichip(8) on {', '.join(out['devices'])}", flush=True)
+    print(f"(w) phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def tools_phase(dev, vec, bg, frontal, frame0, golden, values_extra):
+    """(x): the traincascade and detect CLIs on the card, a HOG cascade
+    routed by the detect CLI, and a trace of one detection frame; see the
+    module docstring."""
+    import contextlib
+    import io
+    import shutil
+
+    from cascadeclassifier_tpu_torch import _build
+    from cascadeclassifier_tpu_torch.detect.detector import make_detector
+    from cascadeclassifier_tpu_torch.models.model import (
+        FEATURE_HOG,
+        CascadeModel,
+        HOGFeature,
+        Stage,
+        WeakTree,
+    )
+    from cascadeclassifier_tpu_torch.models.xml_io import read_cascade_xml, write_cascade_xml
+    from cascadeclassifier_tpu_torch.ops.features import hog_catalog
+    from cascadeclassifier_tpu_torch.tools import detect_cli, traincascade_cli
+    from cascadeclassifier_tpu_torch.utils import train_data
+    from cascadeclassifier_tpu_torch.utils.profiling import annotate, trace
+
+    def stdout_of(fn, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(argv)
+        check(rc == 0, f"(x) {fn.__module__} {argv} returned {rc}")
+        return buf.getvalue()
+
+    t0 = time.perf_counter()
+    # -- check 1: torch-traincascade, 2 stages on the card
+    data = os.path.join(TRAIN_DIR, "x_cli")
+    _build.LAUNCHES.clear()
+    # a leaf target of 0.1^2: the default 0.5^2 ends the run at stage 1's first windows
+    out = stdout_of(traincascade_cli.main, ["-data", data, "-vec", vec, "-bg", bg, "-numPos",
+                                             str(N_POS), "-numNeg", str(N_NEG), "-numStages",
+                                             "2", "-maxFalseAlarmRate", "0.1", "-device",
+                                             str(dev)])
+    torch.cuda.synchronize()
+    n_launch = _build.LAUNCHES["split_scan_gather"]
+    check("Number of unique features given windowSize [24,24] : 162336" in out
+          and "===== TRAINING 1-stage =====" in out, "(x) check 1: the CLI's transcript")
+    check(n_launch > 0, "(x) check 1: the CLI did not launch split_scan_gather")
+    model = read_cascade_xml(os.path.join(data, "cascade.xml"))
+    check(model.num_stages == 2, f"(x) check 1: cascade.xml holds {model.num_stages} stages")
+    scene = train_data.background(1080, 1920, seed=300)
+    got = make_detector(model, device=dev).detect_multi_scale(scene, 1.1, 3)
+    want = make_detector(model, device=dev, impl="ref").detect_multi_scale(scene, 1.1, 3)
+    check(np.array_equal(got, want) and got.ndim == 2 and got.shape[1] == 4,
+          "(x) check 1: the trained cascade's rects differ from the plain-version path's")
+    values_extra["split_scan_gather"]["launches_cli_2_stages"] = n_launch
+    print(f"(x) check 1: torch-traincascade trained 2 stages on the card (split_scan_gather "
+          f"launched {n_launch} times); cascade.xml loads and detects {len(got)} rects on a "
+          f"1080p clutter frame, equal to the plain-version path's", flush=True)
+
+    # -- check 2: torch-detect on frame 0 prints the golden's rects
+    pgm = os.path.join(TRAIN_DIR, "x_frame0.pgm")
+    train_data.write_pgm(pgm, frame0)
+    _build.LAUNCHES.clear()
+    out = stdout_of(detect_cli.main, [frontal, pgm, "--scale-factor", "1.1", "--min-neighbors",
+                                      "3", "--device", str(dev)])
+    torch.cuda.synchronize()
+    rects = sorted([int(v) for v in line.split()] for line in out.splitlines())
+    g0 = next(g for g in golden["frames"] if g["k"] == 0)
+    check(rects == g0["rects_mn3"], f"(x) check 2: torch-detect printed {len(rects)} rects, "
+                                    f"the golden has {len(g0['rects_mn3'])}")
+    check(_build.LAUNCHES["front"] > 0, "(x) check 2: torch-detect did not launch front")
+    cat = hog_catalog(32, 32)
+    tree = WeakTree(left=np.array([-1], np.int32), right=np.array([-2], np.int32),
+                    feature_idx=np.array([0], np.int32), threshold=np.array([0.5], np.float32),
+                    leaf_values=np.array([0.0, -1.0, 1.0], np.float32))
+    hog = CascadeModel(feature_type=FEATURE_HOG, width=32, height=32,
+                       stages=[Stage(threshold=-10.0, trees=[tree])],
+                       features=[HOGFeature(rect=tuple(int(v) for v in cat.rects[0]),
+                                            component=0)], feat_size=36).validate()
+    hog_xml = os.path.join(TRAIN_DIR, "x_hog.xml")
+    write_cascade_xml(hog, hog_xml)
+    small = os.path.join(TRAIN_DIR, "x_small.pgm")
+    train_data.write_pgm(small, frame0[:120, :160])
+    _build.LAUNCHES.clear()
+    lines = stdout_of(detect_cli.main, [hog_xml, small, "--scale-factor", "1.2",
+                                        "--min-neighbors", "1", "--device", str(dev)]).splitlines()
+    torch.cuda.synchronize()
+    check(len(lines) >= 1 and _build.LAUNCHES["hog_hist"] > 0 and _build.LAUNCHES["hog_eval"] > 0,
+          "(x) check 2: torch-detect did not route the HOG cascade through its kernels")
+    print(f"(x) check 2: torch-detect on synth frame 0 (frontal face, sf 1.1, minNeighbors 3) "
+          f"prints the {len(rects)} rects of the OpenCV golden; an accept-all HOG cascade goes "
+          f"to HOGDetector ({len(lines)} rects, hog_hist and hog_eval launched)", flush=True)
+
+    # -- check 3: a trace of one detection frame
+    det = make_detector(read_cascade_xml(frontal), device=dev, exact=False)
+    det.detect_multi_scale(frame0, 1.1, 3)  # warm-up
+    log = os.path.join(TRAIN_DIR, "x_trace")
+    with trace(log):
+        with annotate("smoke_detect_frame"):
+            det.detect_multi_scale(frame0, 1.1, 3)
+        torch.cuda.synchronize()
+    files = os.listdir(log)
+    check(len(files) == 1, f"(x) check 3: trace files {files}")
+    with open(os.path.join(log, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    check("smoke_detect_frame" in names, "(x) check 3: the annotate range is not in the trace")
+    check(any("tile_kernel" in k for k in kernels),
+          "(x) check 3: the front's kernel (tile_kernel) is not in the trace")
+    device_ms = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel") / 1e3
+    print(f"(x) check 3: trace() around one frame wrote {files[0]} "
+          f"({os.path.getsize(os.path.join(log, files[0]))} bytes, {len(events)} events, "
+          f"{len(kernels)} kernel names, the front's tile_kernel and the annotate range "
+          f"among them; {device_ms:.2f} ms of device time)", flush=True)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    print(f"(x) phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def kernel_vs_twin(name: str, run, ctx):

@@ -45,6 +45,7 @@ from cascadeclassifier_tpu_torch.models.model import (  # noqa: E402
     WeakTree,
 )
 from cascadeclassifier_tpu_torch.ops.features import haar_catalog  # noqa: E402
+from cascadeclassifier_tpu_torch.parallel.sharded import make_mesh  # noqa: E402
 from cascadeclassifier_tpu_torch.train import boost, split  # noqa: E402
 from cascadeclassifier_tpu_torch.train.evaluators import HaarTrainEvaluator  # noqa: E402
 from cascadeclassifier_tpu_torch.train.predictor import CascadePredictor  # noqa: E402
@@ -332,15 +333,17 @@ def test_toy_run_matches_original(tmp_path, run):
 
 @pytest.mark.parametrize("what", ["depth2", "mesh", "HOG"])
 def test_still_unported_options_raise(what):
-    """A mesh still raises; deep trees and HOG are ported and build."""
-    kw = {"depth2": dict(boost=boost.BoostParams(max_depth=2)), "mesh": dict(mesh=object()),
+    """Deep trees, HOG and a FeatureMesh are ported and build; a mesh of
+    another type raises TypeError."""
+    kw = {"depth2": dict(boost=boost.BoostParams(max_depth=2)),
+          "mesh": dict(mesh=make_mesh(2, devices=["cpu"] * 2)),
           "HOG": dict(feature_type=FEATURE_HOG)}[what]
-    if what != "mesh":
-        trainer = CascadeTrainer(device="cpu", **kw)
-        assert getattr(trainer.evaluator, "featSize", 1) == (36 if what == "HOG" else 1)
-        return
-    with pytest.raises(NotImplementedError):
-        CascadeTrainer(device="cpu", **kw)
+    trainer = CascadeTrainer(device="cpu", **kw)
+    assert getattr(trainer.evaluator, "featSize", 1) == (36 if what == "HOG" else 1)
+    if what == "mesh":
+        assert trainer.mesh.local_shards == [0, 1]
+        with pytest.raises(TypeError):
+            CascadeTrainer(device="cpu", mesh=object())
 
 
 def test_class_split_calls_go_through_the_wrapper(monkeypatch):

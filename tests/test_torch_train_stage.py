@@ -1,7 +1,7 @@
 """The port's stage trainer against the JAX package on the CPU: a GAB
 stage (trees, thresholds, leaves, the stage threshold and the per-sample
 sums) with no budgets and with budgets that evict value and index blocks,
-and what the port does not train (a mesh).
+and the options the trainer takes (a mesh: tests/test_torch_parallel.py).
 tests/test_torch_train_predictor.py holds the mining predictor, and
 tests/test_torch_train_boost_types.py the other boost types."""
 
@@ -28,6 +28,7 @@ from cascadeclassifier_tpu_torch.models.model import (  # noqa: E402
     FEATURE_LBP,
 )
 from cascadeclassifier_tpu_torch.ops.features import haar_catalog  # noqa: E402
+from cascadeclassifier_tpu_torch.parallel.sharded import make_mesh  # noqa: E402
 from cascadeclassifier_tpu_torch.train import boost  # noqa: E402
 from cascadeclassifier_tpu_torch.train.evaluators import HaarTrainEvaluator  # noqa: E402
 from cascadeclassifier_tpu_torch.train.trainer import CascadeTrainer  # noqa: E402
@@ -130,20 +131,21 @@ def test_split_calls_go_through_the_wrapper_once_per_block(monkeypatch):
 
 @pytest.mark.parametrize("what", ["DAB", "RAB", "LB", "depth2", "mesh", "LBP", "HOG"])
 def test_unported_options_raise(what):
-    """A mesh raises; DAB, RAB, LB, LBP, deep trees and HOG train."""
+    """Every option builds: DAB, RAB, LB, LBP, deep trees, HOG and a
+    FeatureMesh; a mesh of another type raises TypeError."""
     kw = {"DAB": dict(boost=boost.BoostParams(boost_type=BOOST_DAB)),
           "RAB": dict(boost=boost.BoostParams(boost_type=BOOST_RAB)),
           "LB": dict(boost=boost.BoostParams(boost_type=BOOST_LB)),
           "depth2": dict(boost=boost.BoostParams(max_depth=2)),
-          "mesh": dict(mesh=object()),
+          "mesh": dict(mesh=make_mesh(2, devices=["cpu"] * 2)),
           "LBP": dict(feature_type=FEATURE_LBP),
           "HOG": dict(feature_type=FEATURE_HOG)}[what]
-    if what != "mesh":
-        trainer = CascadeTrainer(device="cpu", **kw)
-        assert trainer.evaluator.maxCatCount == (256 if what == "LBP" else 0)
-        return
-    with pytest.raises(NotImplementedError):
-        CascadeTrainer(device="cpu", **kw)
+    trainer = CascadeTrainer(device="cpu", **kw)
+    assert trainer.evaluator.maxCatCount == (256 if what == "LBP" else 0)
+    if what == "mesh":
+        assert trainer.mesh.shape == {"feat": 2}
+        with pytest.raises(TypeError):
+            CascadeTrainer(device="cpu", mesh=object())
 
 
 def test_cuda_trainer_needs_a_card(monkeypatch):
