@@ -14,6 +14,12 @@ raises with nvcc's output; nothing falls back to the plain versions.
 
 ``LAUNCHES`` counts kernel launches per wrapper: each wrapper adds one
 where it launches its kernel and nowhere else.
+
+The host library, ``csrc/cctpu_io.cpp`` (grouping, the ``.vec`` codec and
+the negative-window miner; C++17 and its standard library alone, no
+OpenCV), is built the same way by ``build_host``: one ``g++`` at first use,
+into ``_build/<hash>/``. It needs no CUDA and builds on any machine with
+``g++``; a failed build raises with g++'s output, and nothing falls back.
 """
 
 from __future__ import annotations
@@ -44,6 +50,11 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 LIB_NAME = "libcctorch_kernels.so"
+HOST_SOURCE = "cctpu_io.cpp"
+# -ffp-contract=off: the miner's float schedule rounds each product, as
+# numpy's float32 scalars do
+GXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off", "-Wall")
+HOST_LIB_NAME = "libcctorch_io.so"
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -111,9 +122,17 @@ def _find_nvcc() -> str:
     )
 
 
-def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+def _find_gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH: the host library of "
+                           "cascadeclassifier_tpu_torch cannot be built")
+    return gxx
+
+
+def _source_hash(flags=NVCC_FLAGS, names=SOURCES + HEADERS) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name in names:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
@@ -152,6 +171,23 @@ def build() -> str:
     return lib_path
 
 
+def build_host() -> str:
+    """Compile the host library with g++ (or reuse a build of the same
+    source and flags); returns the shared library's path."""
+    out_dir = os.path.join(BUILD_DIR, _source_hash(GXX_FLAGS, (HOST_SOURCE,)))
+    lib_path = os.path.join(out_dir, HOST_LIB_NAME)
+    if os.path.exists(lib_path):
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        so = os.path.join(tmp, HOST_LIB_NAME)
+        cmd = [_find_gxx(), *GXX_FLAGS, os.path.join(CSRC_DIR, HOST_SOURCE), "-o", so]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        _raise_on_failure(cmd, proc.returncode, proc.stdout)
+        os.replace(so, lib_path)
+    return lib_path
+
+
 def kernel_resources(source: str) -> list:
     """ptxas's report for each kernel of a built source: (entry point,
     registers, spill store bytes, spill load bytes)."""
@@ -169,7 +205,8 @@ def kernel_resources(source: str) -> list:
 
 def _raise_on_failure(cmd, code: int, output: str):
     if code != 0:
-        raise RuntimeError(f"nvcc failed (exit {code}):\n{' '.join(cmd)}\n{output}")
+        tool = os.path.basename(cmd[0])
+        raise RuntimeError(f"{tool} failed (exit {code}):\n{' '.join(cmd)}\n{output}")
 
 
 def lib() -> ctypes.CDLL:

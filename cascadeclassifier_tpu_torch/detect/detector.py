@@ -236,6 +236,23 @@ def build_pixel_canvas(img, plan: PyramidPlan, levels, dtype=torch.int32) -> tor
     return px
 
 
+def _level_row_col(plan: PyramidPlan, sel: np.ndarray):
+    """Flat canvas indices → (level, row in the level, column) arrays."""
+    r = sel // plan.out_w
+    c = sel % plan.out_w
+    s = plan.lvl2d[r, c].astype(np.int32) if plan.packed else plan.row_scale[r]
+    if (s < 0).any():
+        raise ValueError("a window position lies outside every pyramid level")
+    return s, r - plan.block_top[s], c - plan.block_left[s]
+
+
+def _image_rects(plan: PyramidPlan, s, y, c) -> np.ndarray:
+    f = plan.scales[s].astype(np.float32)
+    x_img = np.rint(c.astype(np.float32) * f).astype(np.int32)
+    y_img = np.rint(y.astype(np.float32) * f).astype(np.int32)
+    return np.stack([x_img, y_img, plan.box_w[s], plan.box_h[s]], axis=1)
+
+
 def positions_to_rects(plan: PyramidPlan, sel: np.ndarray) -> np.ndarray:
     """Flat dense-grid indices (r·out_w + c) → unclipped image-space rects.
 
@@ -248,17 +265,20 @@ def positions_to_rects(plan: PyramidPlan, sel: np.ndarray) -> np.ndarray:
     sel = np.asarray(sel, np.int64)
     if sel.size == 0:
         return np.zeros((0, 4), np.int32)
-    r = sel // plan.out_w
-    c = sel % plan.out_w
-    s = plan.lvl2d[r, c].astype(np.int32) if plan.packed else plan.row_scale[r]
-    if (s < 0).any():
-        raise ValueError("a window position lies outside every pyramid level")
-    y = r - plan.block_top[s]
-    c = c - plan.block_left[s]
-    f = plan.scales[s].astype(np.float32)
-    x_img = np.rint(c.astype(np.float32) * f).astype(np.int32)
-    y_img = np.rint(y.astype(np.float32) * f).astype(np.int32)
-    return np.stack([x_img, y_img, plan.box_w[s], plan.box_h[s]], axis=1)
+    return _image_rects(plan, *_level_row_col(plan, sel))
+
+
+def _stack_rects(plan: PyramidPlan, sel: np.ndarray) -> np.ndarray:
+    """positions_to_rects in the plain stack's order: level, then row in
+    the level, then column. On the plain stack (levels stacked downwards,
+    each at column 0) that is ascending index order; a shelf-packed plan
+    lays levels side by side and differs."""
+    sel = np.asarray(sel, np.int64)
+    if sel.size == 0:
+        return np.zeros((0, 4), np.int32)
+    s, y, c = _level_row_col(plan, sel)
+    o = np.lexsort((c, y, s))
+    return _image_rects(plan, s[o], y[o], c[o])
 
 
 class TorchDetector:
@@ -350,10 +370,13 @@ class TorchDetector:
 
     @staticmethod
     def group(plan, idx, min_neighbors: int) -> np.ndarray:
-        """Raw window indices → grouped, clipped (N, 4) int32 rects."""
-        rects = positions_to_rects(plan, idx)
+        """Raw window indices → grouped, clipped (N, 4) int32 rects.
+        Grouping numbers its classes in the order its rects arrive, so
+        they arrive in the plain stack's order whatever the plan's layout,
+        as the JAX package's detector hands them over: the same rects in
+        the same order from either plan."""
         return clip_rects(
-            group_rectangles(rects, min_neighbors), plan.img_w, plan.img_h
+            group_rectangles(_stack_rects(plan, idx), min_neighbors), plan.img_w, plan.img_h
         )
 
     def detect_multi_scale(self, img: np.ndarray, scale_factor: float = 1.1,

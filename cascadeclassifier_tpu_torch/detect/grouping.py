@@ -1,11 +1,15 @@
-"""Exact replication of OpenCV groupRectangles (numpy + scipy).
+"""Exact replication of OpenCV groupRectangles.
 
-The semantics of ``cascadeclassifier_tpu.detect.grouping``, without the
-native C++ dispatch: the connected components go through scipy, which
-gives the same classes; the similar pairs come from an all-against-all
-test up to DENSE_MAX rects and from k-d trees beyond, so that a frame's
-hundreds of thousands of raw windows (a HOG cascade of a few stages at
-1080p) group in memory linear in the pairs. ``cv::groupRectangles(rectList, groupThreshold, eps)``:
+The semantics of ``cascadeclassifier_tpu.detect.grouping``. Up to
+NATIVE_MAX rects the port's host library groups them
+(``data/native.py``, an all-pairs union-find in C++); beyond, numpy and
+scipy do: the connected components go through scipy, which gives the
+same classes, and the similar pairs come from an all-against-all test up
+to DENSE_MAX rects and from k-d trees beyond, so that a frame's hundreds
+of thousands of raw windows (a HOG cascade of a few stages at 1080p)
+group in memory linear in the pairs. ``group_numpy`` is that path at
+every size: the plain version the tests hold the library against.
+``cv::groupRectangles(rectList, groupThreshold, eps)``:
 
   - partition rects into connected components under the SimilarRects
     predicate (|Δ| ≤ eps · 0.5 · (min(w1,w2) + min(h1,h2)) on all 4 sides)
@@ -94,19 +98,40 @@ def kd_pairs(rects, eps: float = 0.2):
     return np.concatenate(rows), np.concatenate(cols)
 
 
+# Up to this many rects the host library's O(N²) union-find is the
+# quickest grouping; beyond, the k-d path (on an H100 machine's host,
+# 2 560 rects: 14.5 against 17.4 ms; 3 072: 19.2 against 14.4;
+# utils/time_grouping.py).
+NATIVE_MAX = 2560
+
+
 def group_rectangles(rects, group_threshold: int, eps: float = 0.2):
     """rects: (N, 4) int array-like of (x, y, w, h). Returns (M, 4) int32.
 
     Matches cv::groupRectangles(objects, minNeighbors, 0.2) as called by
     detectMultiScale. group_threshold <= 0 returns the input unchanged.
-    Classes are the connected components of ``similar_pairs``, in the
-    order of their first member; a class's rect is the float32 average."""
+    Classes are the connected components of the similar pairs, in the
+    order of their first member; a class's rect is the float32 average.
+    Up to NATIVE_MAX rects the host library groups them, beyond it
+    ``group_numpy``."""
+    rects = np.asarray(rects, np.int64).reshape(-1, 4)
+    if len(rects) <= NATIVE_MAX:
+        from cascadeclassifier_tpu_torch.data.native import group_rectangles_native
+
+        return group_rectangles_native(rects, group_threshold, eps)
+    return group_numpy(rects, group_threshold, eps)
+
+
+def group_numpy(rects, group_threshold: int, eps: float = 0.2, pairs=similar_pairs):
+    """group_rectangles in numpy and scipy, the similar pairs from
+    ``pairs`` (``similar_pairs``, or ``dense_pairs`` or ``kd_pairs`` at
+    any size)."""
     rects = np.asarray(rects, np.int64).reshape(-1, 4)
     if group_threshold <= 0 or len(rects) == 0:
         return rects.astype(np.int32)
 
     n = len(rects)
-    i, j = similar_pairs(rects, eps)
+    i, j = pairs(rects, eps)
     n_cls, labels = connected_components(
         csr_matrix((np.ones(len(i), bool), (i, j)), shape=(n, n)), directed=False)
     # label order is the order of each class's first member

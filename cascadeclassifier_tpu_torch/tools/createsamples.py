@@ -1,8 +1,9 @@
 """Positive-sample synthesis and vec utilities (createsamples equivalent).
 
 A copy of ``cascadeclassifier_tpu.tools.createsamples`` on the port's
-``data/vec.py``, ``data/negreader.py`` and ``ops/resize.py``; cv2 is
-imported where a mode needs it.
+host library (``data/native.py``: the .vec codec and the background
+miner, byte for byte ``data/vec.py``'s and ``data/negreader.py``'s) and
+``ops/resize.py``; cv2 is imported where a mode needs it.
 
 Re-implements the reference tool's four modes
 (tools/createsamples/createsamples.cpp:184-218):
@@ -24,7 +25,12 @@ from __future__ import annotations
 
 import numpy as np
 
-from cascadeclassifier_tpu_torch.data.vec import write_vec
+from cascadeclassifier_tpu_torch.data.native import (
+    NativeNegReader,
+    native_read_vec,
+    native_write_vec,
+)
+from cascadeclassifier_tpu_torch.data.vec import VecError
 from cascadeclassifier_tpu_torch.ops.resize import resize_linear_exact_np
 
 CV_RNG_COEFF = 4164903690
@@ -367,18 +373,16 @@ def create_training_samples(
     """-img -vec mode (cvCreateTrainingSamples, utility.cpp:952-1030)."""
     rng = CvRNG(rngseed)
     dist = SampleDistorter(img_path, bgcolor, bgthreshold)
-    bg_reader = None
+    samples = np.full((count, win_h, win_w), bgcolor, np.uint8)
     if bg_path:
-        from cascadeclassifier_tpu_torch.data.negreader import NegReader
-
-        bg_reader = NegReader(bg_path, win_w, win_h)
-    samples = np.empty((count, win_h, win_w), np.uint8)
+        # the reference takes one window per sample; the schedule draws
+        # nothing from rng, and runs dry only on a list with no usable
+        # background, so the windows can be taken in one batch
+        bg_reader = NativeNegReader(bg_path, win_w, win_h)
+        windows = bg_reader.take_batch(count)
+        bg_reader.close()
+        samples[: len(windows)] = windows
     for i in range(count):
-        if bg_reader is not None:
-            w = bg_reader.get()
-            samples[i] = w if w is not None else bgcolor
-        else:
-            samples[i] = bgcolor
         dist.place(
             samples[i],
             rng,
@@ -388,8 +392,13 @@ def create_training_samples(
             maxyangle=maxyangle,
             maxzangle=maxzangle,
         )
-    write_vec(vec_path, samples)
+    _write_vec(vec_path, samples)
     return count
+
+
+def _write_vec(path, samples):
+    if not native_write_vec(path, samples):
+        raise OSError(f"cannot write {path}")
 
 
 def create_samples_from_info(info_path, vec_path, num, win_w, win_h):
@@ -425,7 +434,7 @@ def create_samples_from_info(info_path, vec_path, num, win_w, win_h):
             if len(out) >= num:
                 break
     samples = np.stack(out) if out else np.zeros((0, win_h, win_w), np.uint8)
-    write_vec(vec_path, samples)
+    _write_vec(vec_path, samples)
     return len(out)
 
 
@@ -435,10 +444,10 @@ def show_vec_samples(vec_path, out_dir, width=None, height=None, limit=64):
 
     import cv2
 
-    from cascadeclassifier_tpu_torch.data.vec import read_vec
-
+    raw = native_read_vec(vec_path)
+    if raw is None:
+        raise VecError(f"{vec_path}: not a readable vec file")
     os.makedirs(out_dir, exist_ok=True)
-    raw = read_vec(vec_path)
     n, vecsize = raw.shape
     if width is None or height is None:
         # guess like cvShowVecSamples: the squarest factorization

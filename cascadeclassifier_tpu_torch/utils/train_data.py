@@ -6,12 +6,15 @@ per-sample shift, scale, contrast and texture jitter; ``background``
 draws a clutter frame of rectangles, rings and bars on grey, with
 near-miss decoys of the mark (ring only, disc only, a shifted disc, the
 polarity inverted, a bar across it, a thin ring) so that every stage
-mines hard negatives; ``write_pgm`` writes a binary PGM the port's image
-reader decodes without cv2. Integer-only and seeded: the same call gives
+mines hard negatives; ``write_pgm`` and ``write_png`` write a binary PGM
+and an 8-bit grayscale PNG the port's image reader decodes without cv2. Integer-only and seeded: the same call gives
 the same bytes on every machine.
 """
 
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
@@ -120,3 +123,36 @@ def write_pgm(path: str, img: np.ndarray):
     h, w = img.shape
     with open(path, "wb") as f:
         f.write(b"P5\n%d %d\n255\n" % (w, h) + np.ascontiguousarray(img, np.uint8).tobytes())
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def write_png(path: str, img: np.ndarray):
+    """8-bit grayscale PNG, row y filtered with PNG filter type y mod 5
+    (None, Sub, Up, Average, Paeth), so that a reader meets every filter."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape
+    x = img.astype(np.int32)
+    left = np.zeros_like(x)
+    left[:, 1:] = x[:, :-1]
+    up = np.zeros_like(x)
+    up[1:] = x[:-1]
+    upleft = np.zeros_like(x)
+    upleft[1:, 1:] = x[:-1, :-1]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    preds = (np.zeros_like(x), left, up, (left + up) >> 1, paeth)
+    rows = bytearray()
+    for y in range(h):
+        f = y % 5
+        rows.append(f)
+        rows += ((x[y] - preds[f][y]) & 0xFF).astype(np.uint8).tobytes()
+    with open(path, "wb") as out:
+        out.write(b"\x89PNG\r\n\x1a\n"
+                  + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                  + _png_chunk(b"IDAT", zlib.compress(bytes(rows)))
+                  + _png_chunk(b"IEND", b""))

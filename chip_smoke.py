@@ -9,7 +9,8 @@ TorchDetector on cuda:0, on 1920x1080 synthetic frames at scaleFactor
 (pack_band=False):
 
   (a) build     compile the CUDA kernels from csrc/ (twelve sources), one nvcc per
-                source, all started together (seconds)
+                source, all started together (seconds), and the host library
+                (csrc/cctpu_io.cpp, g++) that groups every frame's rects
   (b) integral  kernel integral vs its plain twin on frame 0's canvas, as
                 uint8 (the fused engine's input) and as int32 (the same
                 values; the stage engine's input)
@@ -241,6 +242,28 @@ Multi-device training and the tools, on (s)'s data (parallel/, tools/):
                 Chrome trace holding its annotate() range and the front's
                 tile_kernel
 
+The host library (csrc/cctpu_io.cpp: grouping, the .vec codec, the
+negative-window miner; C++ and its standard library, built with g++ in
+(a); every detection phase above grouped through it):
+
+  (y) native    Check 1: g++'s version, the library's build seconds and
+                its place under the port's _build/. Check 2: its grouping
+                equals the numpy grouping, rects and order, on
+                utils/time_grouping.py's detection-like sets of 64 to 8192
+                rects at group thresholds 1 and 3, and on the frontal
+                face's raw rects of frames 0-3 (plain stack and
+                shelf-packed plan) at 1 and 3; native, dense and k-d
+                grouping ms by size from 64 to 16384 rects; every timed
+                detection phase's "group" ms, and its group step re-timed
+                on the same raw windows through group_rectangles and
+                through the numpy grouping side by side. Check 3: its
+                .vec writer and reader against data/vec.py byte for byte;
+                its miner equal to NegReader(lazy=False).take_batch over
+                2000 windows of a background list the phase writes (PGM
+                and PNG files of every PNG filter, one smaller than the
+                window, one missing), at two window shapes, both timed
+                (the miner createsamples -img -bg takes its windows from)
+
 and last, per kernel at its path's shapes: time against its twin, the
 least time the card could take (bytes over 3.35 TB/s or operations over
 67 TFLOP/s, the H100 SXM's published rates), and one PyTorch call that
@@ -399,6 +422,10 @@ def main():
     _build.lib()
     print(f"(a) build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(_build.SOURCES)} -> sm_90a)", flush=True)
+    t0 = time.perf_counter()
+    _build.build_host()
+    host_build_s = time.perf_counter() - t0
+    print(f"(a) build: {host_build_s:.1f} s ({_build.HOST_SOURCE} -> g++)", flush=True)
 
     det = TorchDetector(model, exact=False, device=dev, pack_band=False)
     ref = TorchDetector(model, exact=False, device=dev, impl="ref", pack_band=False)
@@ -919,6 +946,11 @@ def main():
     multi_device_phase(dev, vec, bg, values_extra)
     tools_phase(dev, vec, bg, os.path.join(data, "haarcascade_frontalface_alt.xml"), frames[0],
                 golden, values_extra)
+
+    # ------------------------------------------------------------------
+    # (y) the host library
+    native_phase(host_build_s, {"plain stack": det, "shelf-packed": shelf[False]}, frames, SF,
+                 smi)
 
     meta = {
         "integral": ("cascadeclassifier_tpu_torch/csrc/integral.cu",
@@ -2333,6 +2365,133 @@ def tools_phase(dev, vec, bg, frontal, frame0, golden, values_extra):
     print(f"(x) phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+NATIVE_DIR = os.path.join(HERE, "_native_smoke")  # gitignored, removed at the end of (y)
+
+
+def native_phase(host_build_s: float, dets: dict, frames, sf, smi):
+    """(y): the host library against its numpy plain versions; see the
+    module docstring. dets: frontal-face detectors by plan label."""
+    import shutil
+
+    from cascadeclassifier_tpu_torch import _build
+    from cascadeclassifier_tpu_torch.data import native
+    from cascadeclassifier_tpu_torch.data.negreader import NegReader
+    from cascadeclassifier_tpu_torch.data.vec import read_vec, write_vec
+    from cascadeclassifier_tpu_torch.detect.detector import _stack_rects
+    from cascadeclassifier_tpu_torch.detect.grouping import DENSE_MAX, NATIVE_MAX, group_numpy
+    from cascadeclassifier_tpu_torch.utils import time_grouping
+    from cascadeclassifier_tpu_torch.utils.train_data import background, write_pgm, write_png
+
+    t0 = time.perf_counter()
+    # -- check 1: the build
+    gxx = subprocess.run(["g++", "--version"], stdout=subprocess.PIPE, text=True,
+                         check=True).stdout.splitlines()[0]
+    lib_path = native.get_lib()._name
+    check(os.path.dirname(os.path.dirname(lib_path)) == _build.BUILD_DIR,
+          f"(y) check 1: the host library loaded from {lib_path}")
+    print(f"(y) check 1: {gxx}; {_build.HOST_SOURCE} built in {host_build_s:.2f} s with "
+          f"{' '.join(_build.GXX_FLAGS)} -> {os.path.relpath(lib_path, HERE)}", flush=True)
+
+    # -- check 2: grouping, rects and order
+    sizes = (64, 256, 1024, 2048, 4096, 8192)
+    for n in sizes:
+        rects = time_grouping.detection_like(n)
+        for thr in (1, 3):
+            got = native.group_rectangles_native(rects, thr)
+            check(np.array_equal(got, group_numpy(rects, thr)),
+                  f"(y) check 2: native grouping != numpy at {n} rects, threshold {thr}")
+    raw = {}
+    for label, d in dets.items():
+        for k in range(4):
+            plan, idx = d.raw_windows(frames[k], sf)
+            rects = _stack_rects(plan, idx)
+            raw.setdefault(label, []).append(len(rects))
+            for thr in (1, 3):
+                got = native.group_rectangles_native(rects, thr)
+                check(np.array_equal(got, group_numpy(rects, thr)),
+                      f"(y) check 2: native grouping != numpy on the frontal face's frame {k} "
+                      f"({label}), threshold {thr}")
+    print(f"(y) check 2: native grouping equals the numpy grouping (rects and order, "
+          f"tolerance: exact) on detection-like sets of {', '.join(map(str, sizes))} rects at "
+          f"thresholds 1 and 3, and on the frontal face's raw rects of frames 0-3 "
+          f"{raw} at 1 and 3", flush=True)
+    print(f"(y) check 2: grouping ms by size on the host of {smi} (CPU {host_cpu()}), "
+          f"threshold 3, NATIVE_MAX {NATIVE_MAX}, DENSE_MAX {DENSE_MAX}:", flush=True)
+    rows = time_grouping.measure((64, 128, 256, 512, 1024, 2048, 3072, 4096, 8192, 16384),
+                                 3, 5, 4096)
+    check(all(r["same"] for r in rows), "(y) check 2: the timed groupings disagree")
+    print("(y) grouping table " + json.dumps({"native_max": NATIVE_MAX, "rows": rows}),
+          flush=True)
+    for (phase, engine), (table_ms, lib_ms, numpy_ms) in GROUP_MS.items():
+        print(f"(y) check 2: ({phase}) engine {engine}: group {table_ms:.2f} ms/frame in the "
+              f"phase table; on the same raw windows again, {lib_ms:.2f} through "
+              f"group_rectangles against {numpy_ms:.2f} through the numpy grouping "
+              f"(group_numpy), the same rects", flush=True)
+
+    # -- check 3: the .vec codec and the miner
+    shutil.rmtree(NATIVE_DIR, ignore_errors=True)
+    os.makedirs(NATIVE_DIR)
+    rng = np.random.default_rng(0)
+    samples = rng.integers(0, 256, (1000, 24, 24)).astype(np.uint8)
+    p_nat, p_py = os.path.join(NATIVE_DIR, "native.vec"), os.path.join(NATIVE_DIR, "py.vec")
+    check(native.native_write_vec(p_nat, samples), "(y) check 3: native_write_vec failed")
+    write_vec(p_py, samples)
+    with open(p_nat, "rb") as f, open(p_py, "rb") as g:
+        check(f.read() == g.read(), "(y) check 3: the native .vec bytes != data/vec.py's")
+    check(np.array_equal(read_vec(p_nat, 24, 24), samples)
+          and np.array_equal(native.native_read_vec(p_py).reshape(-1, 24, 24), samples),
+          "(y) check 3: a .vec round trip lost samples")
+    check(native.native_read_vec(os.path.join(NATIVE_DIR, "missing.vec")) is None,
+          "(y) check 3: a missing .vec read")
+    names = []
+    for i, (h, w) in enumerate(((120, 160), (97, 131), (150, 90), (200, 170), (20, 30),
+                                (None, None), (64, 300))):
+        path = os.path.join(NATIVE_DIR, f"bg{i}.{'pgm' if i % 2 == 0 else 'png'}")
+        if h is not None:  # else: listed, never written
+            img = (background(h, w, seed=i) if h > 40 else
+                   rng.integers(0, 256, (h, w)).astype(np.uint8))
+            (write_pgm if path.endswith(".pgm") else write_png)(path, img)
+        names.append(path)
+    bg = os.path.join(NATIVE_DIR, "bg.txt")
+    with open(bg, "w") as f:
+        f.write("\n".join(names) + "\n")
+    for ww, wh in ((24, 24), (20, 12)):
+        tp = time.perf_counter()
+        want = NegReader(bg, ww, wh, lazy=False).take_batch(2000)
+        tp = time.perf_counter() - tp
+        tn = time.perf_counter()
+        reader = native.NativeNegReader(bg, ww, wh)
+        got = reader.take_batch(2000)
+        reader.close()
+        tn = time.perf_counter() - tn
+        check(len(want) == 2000 and np.array_equal(got, want),
+              f"(y) check 3: NativeNegReader != NegReader at {ww}x{wh}")
+        print(f"(y) check 3: 2000 windows of {ww}x{wh} from {len(names)} listed backgrounds "
+              f"(PGM and PNG, one of 20x30, one missing): NativeNegReader equals "
+              f"NegReader(lazy=False) byte for byte; {tn * 1e3:.1f} ms against "
+              f"{tp * 1e3:.1f} ms", flush=True)
+    print("(y) check 3: native_write_vec writes data/vec.py's bytes for 1000 samples of "
+          "24x24, and each reader reads the other's file", flush=True)
+    shutil.rmtree(NATIVE_DIR, ignore_errors=True)
+    print(f"(y) phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it (lscpu's "Model name"), with
+    its vendor, family and model numbers (the name may read "unknown")."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    return (f"{info.get('model name', 'unknown')}: {info.get('vendor_id', '?')} family "
+            f"{info.get('cpu family', '?')} model {info.get('model', '?')}, "
+            f"{os.cpu_count()} CPUs")
+
+
 def kernel_vs_twin(name: str, run, ctx):
     """run(impl=...) through the kernel and its twin on the card, equal
     bit for bit → the kernel's output; records the max abs error, and the
@@ -2475,6 +2634,12 @@ def cascade_phase(tag: str, xml: str, golden_path: str, img0, ctx) -> list:
             (f"{os.path.basename(xml)}, fused", det_f)]
 
 
+# (phase, engine) -> "group" ms a frame: the phase table's, then on the
+# same raw windows through group_rectangles and through group_numpy (the
+# grouping before the host library), timed side by side; by detection_timing
+GROUP_MS = {}
+
+
 def detection_timing(phase: str, det, frames, sf, smi):
     """frames/s over the frames after one warm-up frame, then the phase
     table (device synchronized after each phase) over the same frames."""
@@ -2490,17 +2655,45 @@ def detection_timing(phase: str, det, frames, sf, smi):
           f"(engine {det.engine_name}, {'shelf-packed' if det.pack_band else 'plain-stack'} "
           f"plan, sf {sf}, minNeighbors 3) on {smi}", flush=True)
     phases = {}
+    raw = []
     t0 = time.perf_counter()
     for f in frames:
         plan_f, idx_f = det.raw_windows(f, sf, timings=phases)
         tg = time.perf_counter()
         TorchDetector.group(plan_f, idx_f, 3)
         phases["group"] = phases.get("group", 0.0) + (time.perf_counter() - tg) * 1e3
+        raw.append((plan_f, idx_f))
     total = (time.perf_counter() - t0) * 1e3
     phases["other"] = total - sum(phases.values())
+    GROUP_MS[(phase, det.engine_name)] = (phases["group"] / len(frames),
+                                          *group_both_ms(raw, 3))
     print(f"({phase}) ms/frame by phase (device synchronized after each): " + ", ".join(
         f"{k} {v / len(frames):.2f}" for k, v in phases.items()
     ) + f"; total {total / len(frames):.2f}", flush=True)
+
+
+def group_both_ms(raw, min_neighbors: int):
+    """TorchDetector.group's step on each (plan, raw window indices)
+    through group_rectangles (the host library up to NATIVE_MAX rects)
+    and through group_numpy, alternating, with the same rects from both →
+    (ms a frame, ms a frame)."""
+    from cascadeclassifier_tpu_torch.detect.detector import _stack_rects
+    from cascadeclassifier_tpu_torch.detect.grouping import (
+        clip_rects,
+        group_numpy,
+        group_rectangles,
+    )
+
+    ms = [0.0, 0.0]
+    for plan, idx in raw:
+        got = []
+        for k, group in enumerate((group_rectangles, group_numpy)):
+            t = time.perf_counter()
+            got.append(clip_rects(group(_stack_rects(plan, idx), min_neighbors), plan.img_w,
+                                  plan.img_h))
+            ms[k] += (time.perf_counter() - t) * 1e3
+        check(np.array_equal(*got), "group_rectangles != group_numpy on a frame's raw windows")
+    return ms[0] / len(raw), ms[1] / len(raw)
 
 
 def profile(name: str, det, frames, sf):

@@ -247,12 +247,12 @@ def test_detect_cli_routes_hog_cascade(tmp_path, capsys):
 
 @pytest.mark.parametrize("fast", [False, True])
 def test_detect_cli_matches_original(tmp_path, fast):
-    """torch-detect --device cpu prints the JAX detect CLI's lines on a
-    face-blob image (frontal face, sf 1.2, minNeighbors 1), f64 and f32
-    sums: in the same order through the plain level stack (--engine
-    pallas); as the same set through "auto" (the fused engine, whose
-    shelf-packed plan hands grouping its windows in another order, as
-    the JAX package's packed plan does); -o writes the annotated image."""
+    """torch-detect --device cpu prints the JAX detect CLI's lines in the
+    same order on a face-blob image (frontal face, sf 1.2, minNeighbors
+    1), f64 and f32 sums, through the plain level stack (--engine pallas)
+    and through "auto" (the fused engine on its shelf-packed plan, which
+    hands grouping its windows in the plain stack's order); -o writes the
+    annotated image."""
     img = face_blob_image(240, 180, n=4, seed=2)
     png = str(tmp_path / "faces.png")
     cv2.imwrite(png, img)
@@ -265,7 +265,7 @@ def test_detect_cli_matches_original(tmp_path, fast):
     assert rc == jrc == 0
     assert out.splitlines() == jout.splitlines() and len(out.splitlines()) >= 3
     rc, out = _stdout(main, argv + ["--device", "cpu", "-o", str(tmp_path / "vis.png")])
-    assert rc == 0 and sorted(out.splitlines()) == sorted(jout.splitlines())
+    assert rc == 0 and out.splitlines() == jout.splitlines()
     assert cv2.imread(str(tmp_path / "vis.png")).shape == (180, 240, 3)
 
 
