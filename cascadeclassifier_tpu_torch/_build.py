@@ -37,8 +37,8 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("integral.cu", "front.cu", "patchify.cu", "tilted.cu", "stage.cu",
-           "packed_front.cu", "tile_node.cu", "tile_lbp.cu", "split_scan.cu", "cat_split.cu",
-           "hog_hist.cu", "hog_eval.cu")
+           "packed_front.cu", "tile_node.cu", "tile_lbp.cu", "split_scan.cu", "split_class.cu",
+           "cat_split.cu", "hog_hist.cu", "hog_eval.cu")
 # included by front.cu, stage.cu, packed_front.cu, tile_node.cu and tile_lbp.cu
 HEADERS = ("cascade_tile.cuh",)
 NVCC_FLAGS = (
@@ -92,9 +92,17 @@ _SIGNATURES = {
     # vs, ws, rs, kept, n, b, levels, total_w, total_r, q, thr, stream
     "cct_split_scan": [_P, _P, _P, _P, _I, _I, _I, _D, _D, _P, _P, _P],
     # vs, its strides (samples, features), order, its strides, the two
-    # tables, mask, n, b, levels, quality, the tables' totals, q, thr, stream
+    # tables, mask, n, b, levels, the tables' totals, q, thr, stream
     "cct_split_scan_gather": [_P, _L, _L, _P, _L, _L, _P, _P, _P,
-                              _I, _I, _I, _I, _D, _D, _P, _P, _P],
+                              _I, _I, _I, _D, _D, _P, _P, _P],
+    # vs, its strides, order, its strides, w0, w1, mask, n, b, levels, gini,
+    # t0, t1, q, thr, stream
+    "cct_split_class": [_P, _L, _L, _P, _L, _L, _P, _P, _P,
+                        _I, _I, _I, _I, _D, _D, _P, _P, _P],
+    # n, gini, CTAs an SM (out), table in shared memory (out)
+    "cct_split_class_info": [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    # the largest n whose table goes to shared memory (out)
+    "cct_split_class_shared_max": [ctypes.POINTER(_I)],
     # codes, the two tables, n, b, policy, q, subset, stream
     "cct_cat_split": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     # n, the features one launch works on at once (out)
@@ -192,7 +200,12 @@ def kernel_resources(source: str) -> list:
     """ptxas's report for each kernel of a built source: (entry point,
     registers, spill store bytes, spill load bytes)."""
     with open(os.path.join(os.path.dirname(build()), source + ".log")) as f:
-        log = f.read()
+        return ptxas_resources(f.read())
+
+
+def ptxas_resources(log: str) -> list:
+    """(entry point, registers, spill store bytes, spill load bytes) for
+    each kernel in the output of ``nvcc -Xptxas -v``."""
     out = []
     for part in re.split(r"Compiling entry function '", log)[1:]:
         name = part.split("'", 1)[0]

@@ -1,15 +1,11 @@
-// Best stump split of every feature of a sorted block, for the GAB, LB, DAB
-// and RAB trainers.
+// Best stump split of every feature of a sorted block, for the GAB and LB
+// trainers (the two-class split of DAB and RAB is split_class.cu).
 //
 // Replaces cascadeclassifier_tpu/train/boost.py:129 _ordered_split_block and
 // :74 _ordered_split_sorted (XLA: gathers of the per-sample weights into each
 // feature's sort order, cumsum over the sorted axis, a reversed cummin, the
-// quality and a first argmax), and in the gathered form also :258
-// _ordered_class_split_block and :214 _ordered_class_split_sorted, the
-// two-class split of DAB (misclassification) and RAB (Gini): the same scans
-// of the masked class-0 and class-1 weights, another quality (the Q
-// template parameter). Output per feature: the best quality (f64, -inf when
-// no split is valid) and the f32 midpoint threshold.
+// quality and a first argmax). Output per feature: the best quality (f64,
+// -inf when no split is valid) and the f32 midpoint threshold.
 //
 // The f64 prefix sums are added in the order XLA:CPU adds them for
 // jnp.cumsum (the JAX package's arithmetic, which the trainer is held to bit
@@ -89,9 +85,6 @@ constexpr int kStages = 2;
 constexpr int kXchBytes = kThreads * (16 + 4);
 
 enum Policy { kArray = 0, kGatherShared = 1, kGatherGlobal = 2 };
-// the quality: regression (tables: masked weight, weight x response), or the
-// two-class criteria (tables: the masked weights of class 0 and class 1)
-enum Quality { kReg = 0, kMisclass = 1, kGini = 2 };
 
 template <int P>
 struct Layout {
@@ -180,8 +173,7 @@ struct Args {
   const double* rm;
   const uint8_t* mask;
   int n, b, levels;
-  bool l1_first;           // Gini: fma(l1, l1, l0^2) on the left
-  double total_w, total_r;  // two-class: the totals of class 0 and class 1
+  double total_w, total_r;
   double* q_out;
   float* thr_out;
 };
@@ -256,25 +248,9 @@ __device__ __forceinline__ void take(Best& b, double q, int pos, float v, float 
 // The quality of the split after a position judged here (its next kept
 // value nx), or -inf where no split is valid; branch-free, so that the 16
 // positions of a thread run side by side. lw, lr: the prefixes of the two
-// tables (two-class: l0 and l1).
-template <int Q>
+// tables.
 __device__ __forceinline__ double quality(const Args& a, bool judged, float v, float nx,
                                           double lw, double lr) {
-  if (Q != kReg) {
-    const double r0 = __dsub_rn(a.total_w, lw), r1 = __dsub_rn(a.total_r, lr);
-    const bool apart = judged && __fadd_rn(v, kTwoFltEps) < nx && isfinite(nx);
-    if (Q == kMisclass) return apart ? fmax(__dadd_rn(lw, r1), __dadd_rn(lr, r0)) : -CUDART_INF;
-    // XLA:CPU contracts ((l0^2 + l1^2) rw + (r0^2 + r1^2) lw) / (lw rw) into
-    // fma(L, rw, fma(r0, r0, r1^2) lw) with L = fma(l0, l0, l1^2), or
-    // fma(l1, l1, l0^2) (train/split.py::gini_l1_first)
-    const double tl = __dadd_rn(lw, lr), tr = __dadd_rn(r0, r1);
-    const bool ok = apart && tl > 0.0 && tr > 0.0;
-    const double left = a.l1_first ? __fma_rn(lr, lr, __dmul_rn(lw, lw))
-                                   : __fma_rn(lw, lw, __dmul_rn(lr, lr));
-    const double num = __fma_rn(left, tr, __dmul_rn(__fma_rn(r0, r0, __dmul_rn(r1, r1)), tl));
-    const double q = __ddiv_rn(ok ? num : 0.0, ok ? __dmul_rn(tl, tr) : 1.0);
-    return ok ? q : -CUDART_INF;
-  }
   const double rw = __dsub_rn(a.total_w, lw);
   const bool ok = judged && __fadd_rn(v, kTwoFltEps) < nx && isfinite(nx) && lw > 0.0 &&
                   rw > 0.0;
@@ -288,7 +264,7 @@ __device__ __forceinline__ double quality(const Args& a, bool judged, float v, f
   return ok ? q : -CUDART_INF;
 }
 
-template <int P, int Q>
+template <int P>
 __global__ void __launch_bounds__(kThreads, 1) split_scan_kernel(Args a) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x;
@@ -531,7 +507,7 @@ __global__ void __launch_bounds__(kThreads, 1) split_scan_kernel(Args a) {
     Best t[kBase];
 #pragma unroll
     for (int m = 0; m < kBase; ++m)
-      t[m] = Best{quality<Q>(a, (judged >> m) & 1u, v[m], nxa[m], lw[m], lr[m]), ib + m, v[m],
+      t[m] = Best{quality(a, (judged >> m) & 1u, v[m], nxa[m], lw[m], lr[m]), ib + m, v[m],
                   nxa[m]};
 #pragma unroll
     for (int w = 1; w < kBase; w *= 2)
@@ -545,7 +521,7 @@ __global__ void __launch_bounds__(kThreads, 1) split_scan_kernel(Args a) {
     llr = __shfl_sync(kFull, llr, last, kBase);
     lpos = __shfl_sync(kFull, lpos, last, kBase);
     if (seg) {
-      if (pend && k == 0) take(best, quality<Q>(a, true, pv, cf, plw, plr), ppos, pv, cf);
+      if (pend && k == 0) take(best, quality(a, true, pv, cf, plw, plr), ppos, pv, cf);
       pend = true;
       pv = lv;
       plw = llw;
@@ -588,7 +564,7 @@ __global__ void __launch_bounds__(kThreads, 1) split_scan_kernel(Args a) {
   cp_async_wait<0>();
 }
 
-template <int P, int Q>
+template <int P>
 int launch(const Args& a, cudaStream_t stream) {
   static int sms = 0;
   if (sms == 0) {
@@ -597,18 +573,18 @@ int launch(const Args& a, cudaStream_t stream) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   const size_t smem = (P == kGatherShared ? table_bytes(a.n + 1) : 0) + Layout<P>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(split_scan_kernel<P, Q>,
+  cudaError_t err = cudaFuncSetAttribute(split_scan_kernel<P>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, split_scan_kernel<P, Q>,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, split_scan_kernel<P>,
                                                       kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int ntiles = (a.b + kTile - 1) / kTile;
   const int grid = ntiles < sms * per_sm ? ntiles : sms * per_sm;
-  split_scan_kernel<P, Q><<<grid, kThreads, smem, stream>>>(a);
+  split_scan_kernel<P><<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -645,24 +621,21 @@ extern "C" int cct_split_scan(const void* vs, const void* ws, const void* rs, co
   a.a1 = ws;
   a.rs = static_cast<const double*>(rs);
   a.kept = static_cast<const uint8_t*>(kept);
-  return launch<kArray, kReg>(a, static_cast<cudaStream_t>(stream));
+  return launch<kArray>(a, static_cast<cudaStream_t>(stream));
 }
 
 // Gathered form: vs (f32) and order (int64), each (n, b) with element
 // strides (along samples, along features), one of them 1; the per-sample
-// tables wm, rm (f64) and mask (bytes 0/1), n each: for quality 0
-// (regression) the masked weights and weight x responses, for 1
-// (misclassification) and 2 (Gini) the masked weights of class 0 and of
-// class 1, with their totals. The tables go to shared memory when they fit
-// beside the ring, else they are read from global memory. Returns
+// tables wm, rm (f64) and mask (bytes 0/1), n each: the masked weights and
+// weight x responses. The tables go to shared memory when they fit beside
+// the ring, else they are read from global memory. Returns
 // cudaGetLastError() after the launch.
 extern "C" int cct_split_scan_gather(const void* vs, long long vs_si, long long vs_sf,
                                      const void* order, long long o_si, long long o_sf,
                                      const void* wm, const void* rm, const void* mask, int n,
-                                     int b, int levels, int quality, double total_w,
-                                     double total_r, void* q, void* thr, void* stream) {
-  if (bad_shape(n, b, levels) || quality < kReg || quality > kGini)
-    return static_cast<int>(cudaErrorInvalidValue);
+                                     int b, int levels, double total_w, double total_r, void* q,
+                                     void* thr, void* stream) {
+  if (bad_shape(n, b, levels)) return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0) return static_cast<int>(cudaGetLastError());
   Args a = base_args(vs, n, b, levels, total_w, total_r, q, thr);
   a.vs_si = vs_si;
@@ -673,17 +646,11 @@ extern "C" int cct_split_scan_gather(const void* vs, long long vs_si, long long 
   a.wm = static_cast<const double*>(wm);
   a.rm = static_cast<const double*>(rm);
   a.mask = static_cast<const uint8_t*>(mask);
-  a.l1_first = n > kChunk && n % kBase != 0;  // train/split.py::gini_l1_first
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   const size_t shared = table_bytes(n + 1) + Layout<kGatherShared>::kBytes;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool in_shared = shared <= static_cast<size_t>(optin);
-  if (quality == kMisclass)
-    return in_shared ? launch<kGatherShared, kMisclass>(a, s)
-                     : launch<kGatherGlobal, kMisclass>(a, s);
-  if (quality == kGini)
-    return in_shared ? launch<kGatherShared, kGini>(a, s) : launch<kGatherGlobal, kGini>(a, s);
-  return in_shared ? launch<kGatherShared, kReg>(a, s) : launch<kGatherGlobal, kReg>(a, s);
+  return shared <= static_cast<size_t>(optin) ? launch<kGatherShared>(a, s)
+                                               : launch<kGatherGlobal>(a, s);
 }

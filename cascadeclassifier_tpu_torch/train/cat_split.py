@@ -34,15 +34,10 @@ import torch
 
 from cascadeclassifier_tpu_torch import _build
 from cascadeclassifier_tpu_torch.train import split
-from cascadeclassifier_tpu_torch.train.split import (
-    POLICY_GINI,
-    POLICY_MISCLASS,
-    POLICY_REG,
-    SUM_WINDOW,
-    fma,
-    gini,
-    scan_cumsum,
-)
+from cascadeclassifier_tpu_torch.train.split import SUM_WINDOW, fma, gini, scan_cumsum
+
+# the quality policies of cat_split.cu
+POLICY_REG, POLICY_MISCLASS, POLICY_GINI = 0, 1, 2
 
 NCAT = 256  # maxCatCount of LBP features
 WORDS = NCAT // 32

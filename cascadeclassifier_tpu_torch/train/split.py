@@ -12,8 +12,9 @@ and the f32 midpoint threshold. ``split_scan_class_gather`` is the
 two-class split of DAB and RAB (``_ordered_class_split_sorted``,
 find_split_ord_class in o_cvboostree.cpp): the same scans of the
 masked class-0 and class-1 weights, the misclassification or the Gini
-quality. A CUDA tensor runs ``csrc/split_scan.cu``; a CPU tensor, or
-``impl="ref"``, runs the plain version.
+quality. A CUDA tensor runs ``csrc/split_scan.cu`` (regression) or
+``csrc/split_class.cu`` (two-class); a CPU tensor, or ``impl="ref"``, runs
+the plain version.
 
 Blocks are (N, B): element (i, f) is feature f's i-th sample in that
 feature's sort order. ``split_scan_gather`` takes the sorted values and
@@ -47,8 +48,6 @@ SCAN_BASE = 16  # XLA:CPU ReduceWindowRewriter base length (jnp.cumsum)
 SUM_WINDOW = 32  # XLA:CPU TreeReductionRewriter window (jnp.sum)
 FLT_EPSILON = np.float32(1.1920929e-07)
 TWO_FLT_EPSILON = float(2 * FLT_EPSILON)  # 2^-22, added in f32
-# the quality policies of the split kernels (split_scan.cu's gathered form, cat_split.cu)
-POLICY_REG, POLICY_MISCLASS, POLICY_GINI = 0, 1, 2
 
 
 def scan_levels(n: int) -> int:
@@ -293,7 +292,9 @@ def split_scan_gather_ref(vs, order, wm, rm, mask, total_w: float, total_r: floa
     return split_scan_ref(vs, *gather_inputs(order, wm, rm, mask), total_w, total_r)
 
 
-def _launch_gather(vs, order, ta, tb, mask, total_a: float, total_b: float, policy: int):
+def _launch_gather(fn: str, vs, order, ta, tb, mask, total_a: float, total_b: float, *policy):
+    """Launch a gathered split kernel (fn, its C entry point; policy: the
+    arguments between levels and the totals)."""
     dev = vs.device
     _build.require(vs, torch.float32, 2, "vs", dev, contiguous=False)
     _build.require(order, torch.int64, 2, "order", dev, contiguous=False)
@@ -302,17 +303,16 @@ def _launch_gather(vs, order, ta, tb, mask, total_a: float, total_b: float, poli
     _build.require(mask, torch.bool, 1, "mask", dev)
     n, b = vs.shape
     if order.shape != vs.shape or any(t.shape != (n,) for t in (ta, tb, mask)) or n == 0:
-        raise ValueError("split_scan_gather: shapes "
-                         f"{[tuple(t.shape) for t in (vs, order, ta, tb, mask)]}")
+        raise ValueError(f"{fn}: shapes {[tuple(t.shape) for t in (vs, order, ta, tb, mask)]}")
     q = torch.empty(b, dtype=torch.float64, device=dev)
     thr = torch.empty(b, dtype=torch.float32, device=dev)
-    code = _build.lib().cct_split_scan_gather(
+    code = getattr(_build.lib(), fn)(
         vs.data_ptr(), vs.stride(0), vs.stride(1), order.data_ptr(), order.stride(0),
         order.stride(1), ta.data_ptr(), tb.data_ptr(), mask.data_ptr(), n, b, scan_levels(n),
-        policy, float(total_a), float(total_b), q.data_ptr(), thr.data_ptr(),
+        *policy, float(total_a), float(total_b), q.data_ptr(), thr.data_ptr(),
         _build.stream_of(vs),
     )
-    _build.check(code, "cct_split_scan_gather")
+    _build.check(code, fn)
     return q, thr
 
 
@@ -328,9 +328,21 @@ def split_scan_gather(vs, order, wm, rm, mask, total_w: float, total_r: float,
     as in split_scan_ref → (quality (B,) f64, threshold (B,) f32)."""
     if _build.use_ref(vs, impl):
         return split_scan_gather_ref(vs, order, wm, rm, mask, total_w, total_r)
-    out = _launch_gather(vs, order, wm, rm, mask, total_w, total_r, POLICY_REG)
+    out = _launch_gather("cct_split_scan_gather", vs, order, wm, rm, mask, total_w, total_r)
     _build.LAUNCHES["split_scan_gather"] += 1
     return out
+
+
+def class_shared_max() -> int:
+    """The largest sample count whose compact table csrc/split_class.cu
+    keeps in shared memory on the current device; past it the kernel reads
+    the tables from global memory."""
+    import ctypes
+
+    out = ctypes.c_int()
+    _build.check(_build.lib().cct_split_class_shared_max(ctypes.byref(out)),
+                 "cct_split_class_shared_max")
+    return out.value
 
 
 def split_scan_class_gather_ref(vs, order, w0, w1, mask, t0: float, t1: float, use_gini: bool):
@@ -345,10 +357,16 @@ def split_scan_class_gather(vs, order, w0, w1, mask, t0: float, t1: float, use_g
     sort order (DAB: misclassification, RAB: Gini): vs, order and mask as
     in split_scan_gather; w0, w1 (N,) f64 the masked weights of the
     class-0 and the class-1 samples (0 elsewhere), t0, t1 their totals in
-    sample order → (quality (B,) f64, threshold (B,) f32)."""
+    sample order → (quality (B,) f64, threshold (B,) f32).
+
+    At most one of w0, w1 is non-zero per sample, and both are zero where
+    mask is False (every caller forms them from one masked weight and a
+    class): the kernel keeps one f64 a sample, the weight signed by its
+    class, NaN where masked out (csrc/split_class.cu, entry()), and adds
+    each weight to its own class's sum only, which gives the bits of the
+    two sums."""
     if _build.use_ref(vs, impl):
         return split_scan_class_gather_ref(vs, order, w0, w1, mask, t0, t1, use_gini)
-    out = _launch_gather(vs, order, w0, w1, mask, t0, t1,
-                         POLICY_GINI if use_gini else POLICY_MISCLASS)
+    out = _launch_gather("cct_split_class", vs, order, w0, w1, mask, t0, t1, int(use_gini))
     _build.LAUNCHES["split_scan_class_gather"] += 1
     return out

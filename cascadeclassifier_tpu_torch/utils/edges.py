@@ -39,6 +39,13 @@ CTA's windows part full and start spans unaligned (``hog_edge_cases``);
 ``hog_eval`` also takes, on the noise, variable lists unsorted and
 repeated (short, and longer than its plan-free limit), of one variable,
 and of one feature's 36 shuffled (``hog_id_cases``).
+The two-class split kernel (``csrc/split_class.cu``) takes blocks of 1, 15,
+16 and 17 samples and around its chunks and scan levels, one feature and
+an odd count of features, sample counts on both sides of its shared-memory
+table, a block with every sample masked out, one class only, every value
+equal, values of ±0.0, a kept position carried over a fully masked chunk
+and exact ties across blocks and a chunk's edge, in both policies and both
+layouts (``class_split_edge_cases``).
 ``chip_smoke.py`` and the card's tests run the same cases.
 """
 
@@ -423,6 +430,98 @@ def cat_split_edge_mismatches(device):
             n += 1
             if not all(torch.equal(g, r) for g, r in zip(got, want)):
                 bad.append(f"{label}, {policy}")
+    return n, bad
+
+
+# sample counts of the two-class split kernel (csrc/split_class.cu): one
+# block of 16 and around it, around a chunk of 256 and around the third
+# level of the scan (4 096)
+CLASS_NS = (1, 15, 16, 17, 255, 256, 257, 4096, 4097)
+
+
+def _class_block(rng, b: int, n: int):
+    """(b, n) f32 values with ties and neighbours within 2·FLT_EPSILON, and
+    cubed random weights (sum 1), classes and a 20 % mask."""
+    v = rng.integers(0, 40, (b, n)).astype(np.float32) * np.float32(0.37)
+    v[:, ::7] += np.float32(1e-7)
+    w = rng.random(n) ** 3
+    return v, w / w.sum(), rng.random(n) > 0.5, rng.random(n) > 0.2
+
+
+def class_split_edge_cases(shared_max: int):
+    """(label, values (b, n) f32, w (n,) f64, cls (n,) bool, mask (n,) bool)
+    numpy per case; shared_max: the largest sample count whose table the
+    kernel keeps in shared memory (split.class_shared_max())."""
+    for n in CLASS_NS:
+        yield (f"n {n}", *_class_block(np.random.default_rng(500 + n), 3, n))
+    for b in (1, 33):  # one feature; an odd count, a warp's pair half used
+        yield (f"{b} features", *_class_block(np.random.default_rng(600 + b), b, 300))
+    for n in (shared_max, shared_max + 1):  # the table in shared, then global memory
+        yield (f"n {n} (tables in shared memory up to {shared_max})",
+               *_class_block(np.random.default_rng(700), 3, n))
+    rng = np.random.default_rng(800)
+    v, w, cls, mask = _class_block(rng, 5, 300)
+    yield "every sample masked out", v, w, cls, np.zeros(300, bool)
+    yield "class 0 only", v, w, np.zeros(300, bool), mask
+    yield "class 1 only", v, w, np.ones(300, bool), mask
+    yield "every value equal", np.full((5, 300), 0.37, np.float32), w, cls, mask
+    zeros = rng.choice(np.array([-1.0, -0.0, 0.0, 1.0], np.float32), (5, 300))
+    zeros[1] = rng.choice(np.array([-0.0, 0.0], np.float32), 300)  # no valid split
+    yield "values of -1, -0.0, +0.0 and 1", zeros, w, cls, mask
+    # samples in value order, chunk 1 masked out: chunk 0's last kept
+    # position is judged against chunk 2's first kept value
+    order_v = np.tile(np.arange(800, dtype=np.float32) * np.float32(0.25), (3, 1))
+    order_v[1] += np.float32(1.0)
+    gap = rng.random(800) > 0.2
+    gap[256:512] = False
+    yield "a fully masked chunk between kept positions", order_v, \
+        np.ones(800) / 800, np.arange(800) % 3 == 0, gap
+    # dyadic weights: class 1 first, a span of zero weight over a chunk's
+    # edge, then class 0: every position of the span ties exactly
+    tw = np.random.default_rng(900).integers(1, 64, 600) / 1024.0
+    tw[240:300] = 0.0
+    yield ("exact ties across blocks and a chunk's edge", order_v[:, :600].copy(), tw,
+           np.arange(600) < 240, np.ones(600, bool))
+
+
+def class_split_inputs(v, w, cls, mask, device, layout: str):
+    """The two-class split's arguments for one edge case on device: the
+    sorted values and the sort order ("fresh": torch.sort's (B, N) outputs
+    seen transposed; "resident": contiguous (N, B)), the class weights, the
+    mask and their totals."""
+    from cascadeclassifier_tpu_torch.train.split import tree_sum
+
+    si = np.argsort(v, axis=1, kind="stable")
+    vs = torch.from_numpy(np.take_along_axis(v, si, 1)).to(device)
+    order = torch.from_numpy(si).to(device)
+    vs, order = (vs.t(), order.t()) if layout == "fresh" else (vs.t().contiguous(),
+                                                               order.t().contiguous())
+    wm = np.where(mask, w, 0.0)
+    w0, w1 = np.where(cls, 0.0, wm), np.where(cls, wm, 0.0)
+    t0 = tree_sum(w0)
+    tabs = [torch.from_numpy(x).to(device) for x in (w0, w1, mask)]
+    return vs, order, *tabs, t0, tree_sum(wm) - t0
+
+
+def class_split_edge_mismatches(device):
+    """split_scan_class_gather's kernel over class_split_edge_cases() in
+    both policies and both layouts against the plain version on the CPU →
+    (cases run, descriptions of the cases that differ)."""
+    from cascadeclassifier_tpu_torch.train.split import class_shared_max, split_scan_class_gather
+
+    with torch.cuda.device(device):
+        shared_max = class_shared_max()
+    n, bad = 0, []
+    for label, v, w, cls, mask in class_split_edge_cases(shared_max):
+        for layout in ("fresh", "resident"):
+            args = class_split_inputs(v, w, cls, mask, device, layout)
+            cpu = [x.cpu() if torch.is_tensor(x) else x for x in args]
+            for gini in (False, True):
+                got = split_scan_class_gather(*args, gini)
+                want = split_scan_class_gather(*cpu, gini)
+                n += 1
+                if not all(torch.equal(g.cpu(), r) for g, r in zip(got, want)):
+                    bad.append(f"{label}, {layout}, {'Gini' if gini else 'misclassification'}")
     return n, bad
 
 

@@ -8,7 +8,7 @@ TorchDetector on cuda:0, on 1920x1080 synthetic frames at scaleFactor
 .xml, 22 upright stages, engine "fused") on the plain vertical stack
 (pack_band=False):
 
-  (a) build     compile the CUDA kernels from csrc/ (twelve sources), one nvcc per
+  (a) build     compile the CUDA kernels from csrc/ (thirteen sources), one nvcc per
                 source, all started together (seconds), and the host library
                 (csrc/cctpu_io.cpp, g++) that groups every frame's rects
   (b) integral  kernel integral vs its plain twin on frame 0's canvas, as
@@ -94,7 +94,15 @@ edges:
                 window of one code, 4 codes, one category, skewed codes)
                 and on skewed 3072-sample blocks of one feature less than,
                 as many as and one more than a launch's warps
-                (utils/edges.py: cat_split_edge_cases)
+                (utils/edges.py: cat_split_edge_cases). Kernel
+                split_scan_class_gather vs its plain version on the CPU in
+                both policies and both layouts: blocks of 1, 15, 16, 17,
+                255-257 and 4096-4097 samples, 1 and 33 features, sample
+                counts on both sides of its shared-memory table, every
+                sample masked out, one class only, every value equal, ±0.0,
+                a kept position carried over a fully masked chunk, exact
+                ties across a chunk's edge (utils/edges.py:
+                class_split_edge_cases)
 
 The f64 stage sums (exact=True, the detector's default; every phase above
 runs exact=False):
@@ -170,10 +178,16 @@ LBP and the other boost types, on (s)'s data:
                 cat_split launched; stage 0 trained on the CPU too,
                 stage0.xml byte-identical. Check 3: stage 0's Haar blocks
                 at two DAB iterations through split_scan_class_gather
-                (misclassification and Gini) equal to its plain version.
-                Check 4: a DAB stage at 200 + 400 samples on the card and
-                on the CPU, stage0.xml byte-identical,
-                split_scan_class_gather launched
+                (misclassification and Gini) equal to its plain version;
+                the design it replaces (split_scan.cu with its two-class
+                quality put back, utils/tune_split_class.py) on the same
+                block, equal
+                too, both timed on the sort's (B, N) outputs and on the
+                resident (N, B) block; the kernel's ptxas registers and
+                spills and its resident CTAs an SM. Check 4: a DAB stage
+                at 200 + 400 samples on the card and on the CPU,
+                stage0.xml byte-identical, split_scan_class_gather
+                launched
 
 Deep weak trees and HOG, on (s)'s data:
 
@@ -400,6 +414,7 @@ def main():
         INTEGRAL_WIDTHS,
         STAGE_RANGES,
         cat_split_edge_mismatches,
+        class_split_edge_mismatches,
         edge_mismatches,
         integral_edge_mismatches,
         packed_edge_mismatches,
@@ -808,6 +823,13 @@ def main():
     print(f"(o) edges, cat_split: {n_cases} cases ({len(CAT_NS)} sample counts around the "
           f"tree's levels x 4 features, 3 blocks around one wave of warps; x 3 policies) "
           "equal to the plain version (tolerance: exact)", flush=True)
+    n_cases, bad = class_split_edge_mismatches(dev)
+    torch.cuda.synchronize()
+    check(not bad, f"(o) split_scan_class_gather: kernel != plain version at {bad}")
+    print(f"(o) edges, split_scan_class_gather: {n_cases} cases (20 blocks x 2 layouts x 2 "
+          "policies: 1-4097 samples, both sides of the shared table, all masked, one class, "
+          "equal values, ±0.0, a masked chunk, ties) equal to the plain version on the CPU "
+          "(tolerance: exact)", flush=True)
     for x in (px, px32):
         again = integral(x)
         check(torch.equal(again[0], s_k) and torch.equal(again[1], q_k),
@@ -932,12 +954,12 @@ def main():
 
     # ------------------------------------------------------------------
     # (s) training, (t) LBP and the other boost types
+    values_extra = {}  # kernel name -> {key: value}: further numbers beside the kernel's
     vec, bg = training_phase(dev, timed, work, errs, launches, timed_extra)
-    boost_types_phase(dev, vec, bg, timed, work, errs, launches, timed_extra)
+    boost_types_phase(dev, vec, bg, timed, work, errs, launches, timed_extra, values_extra)
 
     # ------------------------------------------------------------------
     # (u) deep weak trees, (v) HOG training and detection
-    values_extra = {}  # kernel name -> {key: value}: further numbers beside the kernel's
     deep_phase(dev, vec, bg, launches, values_extra)
     hog_phase(dev, vec, bg, timed, work, errs, launches, timed_extra, values_extra)
 
@@ -995,7 +1017,7 @@ def main():
                       "cascadeclassifier_tpu/train/boost.py:146 (XLA _categorical_split_block, "
                       "not Pallas); cascadeclassifier_tpu/train/boost.py:274 (XLA "
                       "_categorical_class_split_block)"),
-        "split_scan_class_gather": ("cascadeclassifier_tpu_torch/csrc/split_scan.cu",
+        "split_scan_class_gather": ("cascadeclassifier_tpu_torch/csrc/split_class.cu",
                                     "cascadeclassifier_tpu/train/boost.py:214 (XLA "
                                     "_ordered_class_split_sorted, not Pallas); "
                                     "cascadeclassifier_tpu/train/boost.py:258"),
@@ -1475,7 +1497,7 @@ def capture_splits(st, labels, valid):
     return calls
 
 
-def boost_types_phase(dev, vec, bg, timed, work, errs, launches, timed_extra):
+def boost_types_phase(dev, vec, bg, timed, work, errs, launches, timed_extra, values_extra):
     """(t): LBP training at 24x24 (all 8 464 features, GAB stumps, the
     categorical kernel) and a DAB stage (the two-class policy of the split
     kernel), on (s)'s data; see the module docstring."""
@@ -1494,6 +1516,11 @@ def boost_types_phase(dev, vec, bg, timed, work, errs, launches, timed_extra):
     from cascadeclassifier_tpu_torch.train.trainer import CascadeTrainer
     from cascadeclassifier_tpu_torch.utils.profiling import reset_timings, timings
     from cascadeclassifier_tpu_torch.utils.tune_cat_split import window_stats
+    from cascadeclassifier_tpu_torch.utils.tune_split_class import (
+        ctas_per_sm,
+        run_scan_policy,
+        scan_policy_kernels,
+    )
 
     t0 = time.perf_counter()
     lbp = CascadeTrainer(feature_type=FEATURE_LBP, device=dev)
@@ -1661,6 +1688,10 @@ def boost_types_phase(dev, vec, bg, timed, work, errs, launches, timed_extra):
     errs["split_scan_class_gather"] = worst
     vs, order, tabs = full_block
     nn, nb = vs.shape
+    # the trainer's layout past the budgets (torch.sort's (B, N) outputs seen
+    # transposed) and the resident one (contiguous (N, B))
+    vs_r, order_r = vs.contiguous(), order.contiguous()
+    vs, order = vs_r.t().contiguous().t(), order_r.t().contiguous().t()
     print(f"(t) check 3: split_scan_class_gather on {cache.num_blocks} Haar blocks x 2 DAB "
           f"iterations ({nn} samples x up to {nb} features), misclassification and Gini, bit "
           f"for bit equal to the plain version on the card; {time.perf_counter() - t4:.1f} s",
@@ -1670,8 +1701,41 @@ def boost_types_phase(dev, vec, bg, timed, work, errs, launches, timed_extra):
         lambda: split_scan_class_gather(vs, order, *tabs, False, impl="ref"),
         lambda: class_split_library(vs, tabs[0][order], tabs[1][order], tabs[2][order],
                                     *tabs[3:]), 1)
+    # the design it replaces (split_scan.cu's two-class policy) on the same
+    # block, in the same run
+    t_old = time.perf_counter()
+    old = {gini: lib for gini, (lib, _res) in scan_policy_kernels().items()}
+    for gini, lib in old.items():
+        for a in ((vs, order), (vs_r, order_r)):
+            check(all(torch.equal(x, y) for x, y in zip(
+                run_scan_policy(lib, *a, *tabs), split_scan_class_gather(*a, *tabs, gini))),
+                f"split_scan.cu's two-class policy (gini {gini}) != split_scan_class_gather")
+    res = [r for r in _build.kernel_resources("split_class.cu") if "split_class_kernel" in r[0]]
+    check(res, "no ptxas report for split_class_kernel")
+    # the instantiations: <gini, shared table>, of which this block takes the shared one
+    res = {name: (regs, st, ld) for name, regs, st, ld in res}
+    taken = {gini: next(v for k, v in res.items() if f"ILb{int(gini)}ELb1E" in k)
+             for gini in (False, True)}
+    values_extra["split_scan_class_gather"] = {
+        "registers": taken[False][0], "spills": taken[False][1] + taken[False][2],
+        "gini_registers": taken[True][0], "gini_spills": taken[True][1] + taken[True][2],
+        "ctas_per_sm": ctas_per_sm(_build.lib(), nn, False),
+        "gini_ctas_per_sm": ctas_per_sm(_build.lib(), nn, True)}
+    print(f"(t) check 3: split_scan.cu's two-class policy rebuilt (utils/tune_split_class.py, "
+          f"{time.perf_counter() - t_old:.1f} s) equal to split_scan_class_gather on the "
+          f"{nn} x {nb} block, both policies and layouts; the kernel's ptxas reports: "
+          f"{res}; resident "
+          f"CTAs an SM {values_extra['split_scan_class_gather']['ctas_per_sm']} "
+          f"(Gini {values_extra['split_scan_class_gather']['gini_ctas_per_sm']})", flush=True)
     timed_extra["split_scan_class_gather"] = {
-        "gini_ms": lambda: split_scan_class_gather(vs, order, *tabs, True)}
+        "gini_ms": lambda: split_scan_class_gather(vs, order, *tabs, True),
+        "scan_policy_ms": lambda: run_scan_policy(old[False], vs, order, *tabs),
+        "scan_policy_gini_ms": lambda: run_scan_policy(old[True], vs, order, *tabs),
+        "resident_ms": lambda: split_scan_class_gather(vs_r, order_r, *tabs, False),
+        "gini_resident_ms": lambda: split_scan_class_gather(vs_r, order_r, *tabs, True),
+        "scan_policy_resident_ms": lambda: run_scan_policy(old[False], vs_r, order_r, *tabs),
+        "scan_policy_gini_resident_ms": lambda: run_scan_policy(old[True], vs_r, order_r,
+                                                                 *tabs)}
     work["split_scan_class_gather"] = bound(nn * nb * (4 + 8) + nn * (8 + 8 + 1) + nb * (8 + 4),
                                             0)
     del calls, cache
@@ -1791,8 +1855,9 @@ def deep_phase(dev, vec, bg, launches, values_extra):
         check(n_launch > 0, f"({tag}) kernel {kernel} was not launched")
         n_trees = xml.count(b"<internalNodes>")
         if kernel != "split_scan_gather":
-            values_extra[kernel] = {"launches_depth2": n_launch,
-                                    "launches_depth2_per_tree": n_launch / max(n_trees, 1)}
+            values_extra.setdefault(kernel, {}).update({
+                "launches_depth2": n_launch,
+                "launches_depth2_per_tree": n_launch / max(n_trees, 1)})
         print(f"(u) check 2: {tag} stage 0 at {n_pos} + {n_neg} samples on the card and on the "
               f"CPU: stage0.xml byte-identical ({len(xml)} bytes, {n_trees} trees, "
               f"{kernel} launched {n_launch} times); "

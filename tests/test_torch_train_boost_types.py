@@ -142,8 +142,9 @@ def test_class_plain_first_maximum_on_exact_ties(b, n, npos, span, masked, use_g
 @pytest.mark.parametrize("b,n", [(6, 9), (5, 300), (3, 4200), (17, 16), (3, 17), (3, 256),
                                  (3, 257), (2, 4097)])
 def test_kernel_walk_in_numpy_matches_class_plain(b, n, policy):
-    """The kernel's decomposition with its two-class quality policies
-    equals the plain version."""
+    """csrc/split_scan.cu's decomposition (which ran the two-class policy
+    before csrc/split_class.cu; test_torch_split_class.py replays that
+    kernel) with the two-class qualities equals the plain version."""
     v, w, resp, mask = _block(b, n, 3 * n + b + 1)
     arrays, _cls, _si = _class_inputs(v, w, resp, mask)
     vs, w0s, w1s, kept, t0, t1 = arrays
