@@ -38,7 +38,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("integral.cu", "front.cu", "patchify.cu", "tilted.cu", "stage.cu",
            "packed_front.cu", "tile_node.cu", "tile_lbp.cu", "split_scan.cu", "split_class.cu",
-           "cat_split.cu", "hog_hist.cu", "hog_eval.cu")
+           "cat_split.cu", "hog_hist.cu", "hog_eval.cu", "mine.cu")
 # included by front.cu, stage.cu, packed_front.cu, tile_node.cu and tile_lbp.cu
 HEADERS = ("cascade_tile.cuh",)
 NVCC_FLAGS = (
@@ -112,6 +112,12 @@ _SIGNATURES = {
     # hist, norm, cells, var ids, n, p, features, k, the plan's scratch,
     # out, stream
     "cct_hog_eval": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # level table, rows, lazy arena, eager arena, ww, wh, kind, corner
+    # offsets, weights, tilted flags, LBP points, tree features,
+    # thresholds, left and right leaves, subsets, trees, stage ends, stage
+    # thresholds, stages, out, windows, stream
+    "cct_mine": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                 _I, _P, _P, _I, _P, _L, _P],
 }
 
 _lib = None

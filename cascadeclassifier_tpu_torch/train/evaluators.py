@@ -136,6 +136,17 @@ class HaarTrainEvaluator:
         return (corner_matrix(off * up[:, None, None], w * up[:, None], self.p),
                 corner_matrix(off * til[:, None, None], w * til[:, None], self.p))
 
+    def kernel_records(self, sel):
+        """Records of the features sel for the dense miner (csrc/mine.cu):
+        corner offsets (B, 3, 4) int32 into the flattened (h+1)×(w+1)
+        integral (the tilted one for a tilted feature), weights (B, 3)
+        int32 (0: no rect), tilted flags (B,) int32."""
+        w = self._weights[sel]
+        if not torch.equal(w, w.round()):
+            raise ValueError("Haar weights are not integers: the miner sums rects in integers")
+        return (self._offsets[sel].to(torch.int32).contiguous(), w.to(torch.int32).contiguous(),
+                self._tilted[sel].to(torch.int32).contiguous())
+
     def _eval_features(self, sel):
         m_up, m_tilt = self.corner_matrices(sel)
         raw = f32_matmul(m_up, self.sum_rows.T)
@@ -175,6 +186,7 @@ class LBPTrainEvaluator:
         self.win_w, self.win_h = catalog.win_w, catalog.win_h
         self.p = (catalog.win_w + 1) * (catalog.win_h + 1)
         self._cell_rects = torch.from_numpy(catalog.cell_rects()).to(self.device)
+        self._cell_points = torch.from_numpy(catalog.cell_offsets()).to(self.device)
         self.num_features = self.var_count = len(catalog)
         self.n = 0
 
@@ -195,6 +207,11 @@ class LBPTrainEvaluator:
         """(9·B, P) cell incidence matrix of the features sel."""
         cells = self._cell_rects[sel].reshape(-1, 1, 4)
         return corner_matrix(cells, cells.new_ones(cells.shape[:2], dtype=torch.float32), self.p)
+
+    def kernel_records(self, sel):
+        """(B, 16) int32: the 4×4 corner grid points of the features sel,
+        row-major, for the dense miner (csrc/mine.cu)."""
+        return self._cell_points[sel].to(torch.int32).contiguous()
 
     @staticmethod
     def codes(m, rows):

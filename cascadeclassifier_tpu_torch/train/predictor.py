@@ -7,17 +7,20 @@ with the training evaluator's feature values, ``val <= thr`` stumps (Haar)
 or the subset bit of the code (LBP), leaves summed in f64 and a stage
 rejecting at ``sum < threshold − 1e-5``.
 
-``predict_batch`` filters positives; ``predict_levels`` is the miner:
-for each (image, scale) level it crops the window grid from the level
-(resized on the device from its source for lazy levels). The dispatch is
-the JAX package's:
+``predict_batch`` filters positives; ``predict_levels`` is the miner,
+over whole (image, scale) levels. The dispatch is the JAX package's:
 
 - every tree a stump and one value a feature (Haar, LBP): the dense
-  path, every window's integrals and the corner product with the used
-  features (Haar: upright plus tilted, then the division by the norm
-  factor; LBP: the 9 cell sums, then the 8 compares) and ``stump_walk``;
-- every tree a stump and 36 values a feature (HOG): the evaluator's
-  ``set_samples`` on the windows, ``values_for_vars`` and ``stump_walk``;
+  path, ``train/mine.py``: the levels packed into a table and a source
+  arena (``pack_levels``), then ``mine``, one launch of ``csrc/mine.cu``
+  a superbatch on a CUDA device (its plain version ``mine_ref`` on the
+  CPU): each window's pixels, integrals and norm factor, the used
+  features' values (Haar: the rect sums over the norm factor; LBP: the 9
+  cell sums, then the 8 compares) and the stump walk;
+- every tree a stump and 36 values a feature (HOG): the window grid of
+  each level cropped from the level (resized on the device from its
+  source for lazy levels), the evaluator's ``set_samples`` on the
+  windows, ``values_for_vars`` and ``stump_walk``;
 - any tree deeper than a stump: the same values and ``tree_walk``, whose
   stage sums start from 0 and add each tree's leaf in tree order (the
   JAX package's host walk, predictor.py:790-819), a rounding that differs
@@ -33,9 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cascadeclassifier_tpu_torch.ops.integral import integral_tilted
-from cascadeclassifier_tpu_torch.ops.resize import build_level
-from cascadeclassifier_tpu_torch.train.evaluators import divide_nf, f32_matmul, haar_rows, lbp_rows
+from cascadeclassifier_tpu_torch.train import mine
 from cascadeclassifier_tpu_torch.train.split import scan_cumsum
 from cascadeclassifier_tpu_torch.utils.profiling import timed
 
@@ -97,6 +98,12 @@ def tree_walk(vals, fpos, thr, sub, left, right, leaves, roots, depth, bounds, s
     return ok
 
 
+def _split(ok, counts) -> list:
+    """A superbatch's mask → one mask a level, counts[i] long each."""
+    offs = np.concatenate(([0], np.cumsum(counts, dtype=np.int64)))
+    return [ok[a:b] for a, b in zip(offs[:-1], offs[1:])]
+
+
 def _tree_depth(tree, ni=0) -> int:
     d = 0
     for c in (int(tree.left[ni]), int(tree.right[ni])):
@@ -107,45 +114,19 @@ def _tree_depth(tree, ni=0) -> int:
 class CascadePredictor:
     """Accept/reject of the current (partial) cascade on batches."""
 
-    SRC_CACHE_CAP = 256
-    CHUNK_WINDOWS = 65536  # windows a device pass takes at most
-
     def __init__(self, evaluator_factory, stages=None):
         """evaluator_factory: () → a training evaluator over the full catalog."""
         self._make_ev = evaluator_factory
         self.stages = list(stages or [])
-        self._src_cache = {}
+        self._arena = None
         self._walk_key = self._walk = None
+        self._feats_key = self._feats = None
 
     def _used_vars(self):
         return sorted({int(v) for s in self.stages for t in s.trees for v in t.feature_idx})
 
     def _all_stumps(self) -> bool:
         return all(t.num_nodes == 1 for s in self.stages for t in s.trees)
-
-    def _tables(self, used, device, categorical: bool):
-        """Per-tree tensors for stump_walk (every tree a stump)."""
-        pos = {v: i for i, v in enumerate(used)}
-        ti, tt, tl, tr, ts, bounds, sthr = [], [], [], [], [], [0], []
-        for stage in self.stages:
-            for tree in stage.trees:
-                ti.append(pos[int(tree.feature_idx[0])])
-                if categorical:
-                    ts.append(np.asarray(tree.subsets[0], np.int32))
-                    tt.append(0.0)
-                else:
-                    tt.append(tree.threshold[0])
-                tl.append(tree.leaf_values[-int(tree.left[0])] if tree.left[0] <= 0 else 0.0)
-                tr.append(tree.leaf_values[-int(tree.right[0])] if tree.right[0] <= 0 else 0.0)
-            bounds.append(len(ti))
-            sthr.append(float(stage.threshold))
-
-        def t(a, dtype):
-            return torch.as_tensor(np.asarray(a, dtype), device=device)
-
-        return (t(ti, np.int64), t(tt, np.float32), t(tl, np.float32), t(tr, np.float32),
-                t(ts, np.int32) if categorical else None,
-                t(bounds[:-1], np.int64), t(bounds[1:], np.int64), t(sthr, np.float64))
 
     def _node_tables(self, used, device, categorical: bool):
         """The node table of every tree for tree_walk."""
@@ -179,18 +160,20 @@ class CascadePredictor:
                 depth, bounds, sthr)
 
     def _walk_of(self, ev):
-        """(the used features, values (K, m) → (m,) accepts): stump_walk
-        when every tree is a stump, tree_walk otherwise; the tables are
-        built once for a given set of stages."""
+        """(the used features, values (K, m) → (m,) accepts, the dense
+        miner's Trees or None): stump_walk when every tree is a stump,
+        tree_walk otherwise; the tables are built once for a given set of
+        stages."""
         key = (len(self.stages), sum(len(s.trees) for s in self.stages), ev.device)
         if self._walk_key != key:
             used, cat = self._used_vars(), ev.maxCatCount > 0
             if self._all_stumps():
-                tables = self._tables(used, ev.device, cat)
-                self._walk = (used, lambda vals: stump_walk(vals, *tables))
+                trees = mine.tree_table(self.stages, used, cat, ev.device)
+                tables = mine.walk_args(trees)
+                self._walk = (used, lambda vals: stump_walk(vals, *tables), trees)
             else:
                 tables = self._node_tables(used, ev.device, cat)
-                self._walk = (used, lambda vals: tree_walk(vals, *tables))
+                self._walk = (used, lambda vals: tree_walk(vals, *tables), None)
             self._walk_key = key
         return self._walk
 
@@ -206,42 +189,13 @@ class CascadePredictor:
         ev = self._make_ev()
         if not self.stages or samples.shape[0] == 0:
             return torch.ones(samples.shape[0], dtype=torch.bool, device=ev.device)
-        return self._predict_windows(ev, *self._walk_of(ev), samples)
+        used, walk, _trees = self._walk_of(ev)
+        return self._predict_windows(ev, used, walk, samples)
 
     def predict_batch(self, samples) -> np.ndarray:
         """samples: (m, h, w) uint8 → (m,) bool, True when every stage
         accepts (1 == the reference's predict)."""
         return self.predict_device(samples).cpu().numpy()
-
-    def _source(self, lvl, device):
-        key = lvl.src_id
-        dev = self._src_cache.get(key)
-        if dev is None:
-            if len(self._src_cache) >= self.SRC_CACHE_CAP:
-                self._src_cache.clear()
-            dev = torch.from_numpy(np.ascontiguousarray(lvl.src)).to(device)
-            self._src_cache[key] = dev
-        return dev
-
-    def _level_windows(self, img, pos, ww, wh, device):
-        """The windows at pos (m, 2) (px, py) of one level, on the device,
-        in pos order: the level's grid from the first window's row and
-        column, cut from the level (built from its source for a lazy
-        level) by strided views."""
-        sy, sx = wh // 2, ww // 2
-        ox, oy = int(pos[:, 0].min()), int(pos[:, 1].min())
-        iy = torch.as_tensor((pos[:, 1] - oy) // sy, dtype=torch.int64, device=device)
-        ix = torch.as_tensor((pos[:, 0] - ox) // sx, dtype=torch.int64, device=device)
-        ny, nx = int((pos[:, 1] - oy).max()) // sy + 1, int((pos[:, 0] - ox).max()) // sx + 1
-        hs, ws = sy * (ny - 1) + wh, sx * (nx - 1) + ww
-        if hasattr(img, "src"):  # a LazyLevel
-            src = self._source(img, device)
-            slot = build_level(src, img.src.shape[0], img.src.shape[1], img.h, img.w,
-                               oy, ox, hs, ws)
-        else:
-            slot = torch.from_numpy(np.ascontiguousarray(img[oy:oy + hs, ox:ox + ws])).to(device)
-        grid = slot.unfold(0, wh, sy).unfold(1, ww, sx)  # (ny, nx, wh, ww)
-        return grid[iy, ix]
 
     def predict_levels(self, levels, ww: int, wh: int):
         """Mining predict over whole (image, scale) levels.
@@ -251,41 +205,36 @@ class CascadePredictor:
         if not self.stages:
             return [np.ones(len(lv[1]), bool) for lv in levels]
         ev = self._make_ev()
-        dev = ev.device
-        used, walk = self._walk_of(ev)
-        sel = torch.as_tensor(used, device=dev)
         if not self._all_stumps() or getattr(ev, "featSize", 1) != 1:
-            # deep-tree and HOG cascades: the evaluator on the windows
-            def predict(win):
-                return self._predict_windows(ev, used, walk, win)
-        elif ev.maxCatCount > 0:
-            m_cells = ev.cell_matrix(sel)
+            return self._predict_levels_gather(ev, levels, ww, wh)
+        used, _walk, trees = self._walk_of(ev)
+        if self._feats_key != self._walk_key:
+            self._feats, self._feats_key = mine.features_of(ev, used), self._walk_key
+        with timed("mine_values"):
+            packed = self._pack(levels, ww, wh, ev.device)
+            ok = mine.mine(packed, self._feats, trees, ww, wh)
+        with timed("mine_fetch"):
+            ok = ok.cpu().numpy().astype(bool)
+        return _split(ok, packed.counts)
 
-            def predict(win):
-                return walk(ev.codes(m_cells, lbp_rows(win)))
-        else:
-            m_up, m_tilt = ev.corner_matrices(sel)
+    def _pack(self, levels, ww: int, wh: int, device):
+        """The levels' table, their lazy sources in this predictor's arena."""
+        if self._arena is None or self._arena.device != torch.device(device):
+            self._arena = mine.SourceArena(device)
+        return mine.pack_levels(levels, ww, wh, device, self._arena)
 
-            def predict(win):
-                rows, nf = haar_rows(win)
-                raw = f32_matmul(m_up, rows.T)
-                if m_tilt is not None:  # up + tilted, then the division
-                    t = integral_tilted(win)
-                    raw = raw + f32_matmul(m_tilt, t.reshape(t.shape[0], -1).to(torch.float32).T)
-                return walk(divide_nf(raw, nf))
-
-        counts = [len(lv[1]) for lv in levels]
+    def _predict_levels_gather(self, ev, levels, ww: int, wh: int):
+        """Deep-tree and HOG cascades: the windows of each level cut from
+        the level (built from its source for a lazy level), the
+        evaluator's values of the used features, the walk."""
+        used, walk, _trees = self._walk_of(ev)
         oks = []
         with timed("mine_values"):
-            wins = [self._level_windows(img, pos, ww, wh, dev)
-                    for img, pos, _key in levels if len(pos)]
-            wins = torch.cat(wins) if wins else torch.zeros((0, wh, ww), dtype=torch.uint8)
-            for c0 in range(0, wins.shape[0], self.CHUNK_WINDOWS):
-                oks.append(predict(wins[c0:c0 + self.CHUNK_WINDOWS]))
+            packed = self._pack(levels, ww, wh, ev.device)
+            wins = mine.level_windows(packed, ww, wh)
+            for c0 in range(0, wins.shape[0], mine.CHUNK_WINDOWS):
+                oks.append(self._predict_windows(ev, used, walk,
+                                                 wins[c0:c0 + mine.CHUNK_WINDOWS]))
         with timed("mine_fetch"):
             ok = torch.cat(oks).cpu().numpy() if oks else np.zeros(0, bool)
-        out, off = [], 0
-        for c in counts:
-            out.append(ok[off:off + c])
-            off += c
-        return out
+        return _split(ok, packed.counts)

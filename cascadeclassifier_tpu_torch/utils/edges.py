@@ -609,3 +609,254 @@ def hog_edge_mismatches(device):
                                hog_responses(*noise, cells, case, impl="ref")):
                 bad.append(f"{h}x{w} hog_eval {label}")
     return n, bad
+
+
+# -- the dense miner (csrc/mine.cu) ------------------------------------------
+
+# trees a case's stages hold: around a block of 16 and a level-1 block of
+# 256 of the blocked scan, with stage ends on and beside the boundaries
+MINE_STAGE_SIZES = ((1,), (15,), (16,), (1, 16), (17,), (5, 12), (3, 17, 20), (255, 2),
+                    (256,), (100, 156), (16, 240, 45), (300,))
+
+
+def grid_positions(dh: int, dw: int, ww: int, wh: int, oy: int = 0, ox: int = 0,
+                   first: int = 0) -> np.ndarray:
+    """(m, 2) int32 (px, py) of a mining level's schedule: the grid of
+    stride (wh // 2, ww // 2) from (oy, ox) as far as windows fit (the last
+    column and row reach the level's edge where the stride lands there),
+    from column index first of its first row."""
+    sy, sx = wh // 2, ww // 2
+    nx, ny = (dw - ww - ox) // sx + 1, (dh - wh - oy) // sy + 1
+    gx, gy = np.meshgrid(ox + sx * np.arange(nx), oy + sy * np.arange(ny))
+    return np.stack([gx.ravel(), gy.ravel()], 1)[first:].astype(np.int32)
+
+
+def mine_level_specs(seed: int, ww: int, wh: int):
+    """Mining levels of every kind the miner takes, as plain specs
+    (kind "lazy" or "eager", source or image, level (h, w), src_id,
+    positions): a lazy level scaled up from a noise source with a flat
+    patch (nf = 0 windows) from the third column of its first row; a lazy
+    level at scale 1 whose last row and column reach its edge; an eager
+    level; a level with one window; an empty level; a lazy level of a
+    source 2 pixels wide."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, 256, (3 * wh, 4 * ww)).astype(np.uint8)
+    src[wh // 2:wh // 2 + 2 * wh, ww:ww + 2 * ww] = 97  # flat: windows inside have nf = 0
+    dh, dw = 3 * wh + wh // 2 + 3, 4 * ww + ww // 2 + 5
+    src1 = rng.integers(0, 256, (2 * wh + wh // 2, 3 * ww + ww // 2)).astype(np.uint8)
+    img = rng.integers(0, 256, (2 * wh + 4, 3 * ww + 1)).astype(np.uint8)
+    src2 = rng.integers(0, 256, (wh + 3, 2)).astype(np.uint8)
+    return [
+        ("lazy", src, (dh, dw), 0, grid_positions(dh, dw, ww, wh, first=2)),
+        ("lazy", src1, src1.shape, 1, grid_positions(*src1.shape, ww, wh)),
+        ("eager", img, img.shape, None, grid_positions(*img.shape, ww, wh, oy=1, ox=1)),
+        ("lazy", src, (wh + 1, ww), 0, grid_positions(wh + 1, ww, ww, wh)),
+        ("eager", img, img.shape, None, np.zeros((0, 2), np.int32)),
+        ("lazy", src2, (wh + wh // 2, ww + 3), 2, grid_positions(wh + wh // 2, ww + 3, ww, wh)),
+    ]
+
+
+def levels_of(specs, lazy_cls) -> list:
+    """The trainer's (img, positions, key) levels of mine_level_specs's
+    specs, lazy levels as lazy_cls(src, src_id, w, h) (the port's
+    LazyLevel, or the JAX package's)."""
+    out = []
+    for i, (kind, a, (h, w), src_id, pos) in enumerate(specs):
+        img = lazy_cls(a, src_id, w, h) if kind == "lazy" else a
+        out.append((img, pos, (i, kind)))
+    return out
+
+
+def stump_specs(values, ids, sizes, rng, categorical: bool, pass_rate: float = 0.75,
+                neg_zero: bool = False, all_bits: bool = False, knife: bool = False) -> list:
+    """Stages of stumps over the candidate features ids (global) whose
+    values on a case's windows are values (len(ids), m) (Haar f32, LBP
+    codes), as specs [{"features", "thr", "subsets", "leaves",
+    "threshold"}]: each tree's threshold the value of one of the windows
+    (values equal to thresholds), or 8 random subset words (all_bits:
+    every third tree all ones); f32 leaves (neg_zero: every fourth
+    -0.0); each stage's threshold the quantile of its survivors' sums
+    (differences of scan_cumsum's prefix, as the walk takes them) that
+    passes about pass_rate of them, and not all of them where their sums
+    differ. knife: leaves of magnitudes 2^-40 to 2^30, whose f64 sums
+    round apart in other orders, and each stage's threshold, where it
+    can, on a survivor near that quantile that a running sum in tree
+    order would judge the other way."""
+    from cascadeclassifier_tpu_torch.train.split import scan_cumsum
+
+    values = np.asarray(values)
+    m = values.shape[1]
+    alive = np.ones(m, bool)
+    out, taken = [], []
+    for n in sizes:
+        pick = rng.integers(0, len(ids), n)
+        feats = np.asarray(ids)[pick]
+        v = values[pick]
+        if categorical:
+            subsets = rng.integers(-2**31, 2**31, (n, 8)).astype(np.int32)
+            if all_bits:
+                subsets[::3] = -1
+            bit = (subsets[np.arange(n)[:, None], v >> 5] >> (v & 31)) & 1
+            left, thr = bit != 0, np.zeros(n, np.float32)
+        else:
+            thr = v[np.arange(n), rng.integers(0, m, n)].astype(np.float32)
+            left, subsets = v <= thr[:, None], None
+        if knife:
+            leaves = (rng.choice([-1.0, 1.0], (n, 2))
+                      * np.exp2(rng.uniform(-40, 30, (n, 2)))).astype(np.float32)
+        else:
+            leaves = rng.normal(0.0, 1.0, (n, 2)).astype(np.float32)
+        if neg_zero:
+            leaves[::4] = np.float32(-0.0)
+        taken.append(np.where(left, leaves[:, :1], leaves[:, 1:]).astype(np.float64))
+        every = np.concatenate(taken)  # (trees so far, m)
+        end = every.shape[0]
+
+        def stage_sum(pref):
+            return pref[end - 1] - (pref[end - n - 1] if end > n else 0.0)
+
+        sums = stage_sum(scan_cumsum(torch.from_numpy(every)).numpy())
+        live = np.sort(sums[alive]) if alive.any() else np.zeros(1)
+        threshold = float(live[int((1.0 - pass_rate) * (len(live) - 1))])
+        if threshold == live[0] and live[-1] > live[0]:  # reject some of them
+            threshold = float(live[live > live[0]][0])
+        if knife:
+            other = stage_sum(np.cumsum(every, axis=0))
+            cand = np.flatnonzero(alive & (sums != other))
+            if len(cand):
+                k = cand[np.argmin(np.abs(sums[cand] - threshold))]
+                hi = max(sums[k], other[k])  # passes; the other order's sum fails
+                t = hi + 1e-5
+                for _ in range(8):
+                    if t - 1e-5 == hi:
+                        threshold = float(t)
+                        break
+                    t = np.nextafter(t, np.inf if t - 1e-5 < hi else -np.inf)
+        alive &= ~(sums < threshold - 1e-5)
+        out.append({"features": feats, "thr": thr, "subsets": subsets, "leaves": leaves,
+                    "threshold": threshold})
+    return out
+
+
+def stages_of(specs, stage_cls, tree_cls) -> list:
+    """stump_specs's stages as stage_cls(threshold, trees) of
+    tree_cls(left, right, feature_idx, threshold, subsets, leaf_values)
+    stumps (the port's model classes, or the JAX package's)."""
+    stages = []
+    for s in specs:
+        trees = []
+        for i in range(len(s["features"])):
+            trees.append(tree_cls(
+                left=np.array([0], np.int32), right=np.array([-1], np.int32),
+                feature_idx=np.array([s["features"][i]], np.int32),
+                threshold=None if s["subsets"] is not None else s["thr"][i:i + 1].copy(),
+                subsets=None if s["subsets"] is None else s["subsets"][i:i + 1].copy(),
+                leaf_values=s["leaves"][i].copy()))
+        stages.append(stage_cls(threshold=s["threshold"], trees=trees))
+    return stages
+
+
+def tilted_edge_features(catalog) -> np.ndarray:
+    """Global ids of the catalog's tilted features whose corners touch the
+    window's edge (column 0, the last column or the last row)."""
+    r = catalog.rects
+    x, y, w, h = r[:, :, 0], r[:, :, 1], r[:, :, 2], r[:, :, 3]
+    used = catalog.weights != 0
+    touch = used & ((x - h == 0) | (x + w == catalog.win_w) | (y + w + h == catalog.win_h))
+    return np.flatnonzero(catalog.tilted & touch.any(axis=1))
+
+
+def mine_candidates(feature: str, ww: int, wh: int, rng, n: int = 48) -> np.ndarray:
+    """n candidate feature ids of a case (Haar ALL: half of them tilted
+    features touching the window's edge)."""
+    from cascadeclassifier_tpu_torch.ops.features import haar_catalog, lbp_catalog
+
+    if feature == "LBP":
+        return rng.choice(len(lbp_catalog(ww, wh)), n, replace=False)
+    cat = haar_catalog(ww, wh, feature)
+    ids = rng.choice(len(cat), n, replace=False)
+    if feature == "ALL":
+        edge = tilted_edge_features(cat)
+        ids[: n // 2] = rng.choice(edge, n // 2, replace=False)
+    return np.unique(ids)
+
+
+def mine_evaluator(feature: str, ww: int, wh: int, device):
+    """The port's training evaluator of a case: Haar in the mode feature, or LBP."""
+    from cascadeclassifier_tpu_torch.ops.features import haar_catalog, lbp_catalog
+    from cascadeclassifier_tpu_torch.train.evaluators import HaarTrainEvaluator, LBPTrainEvaluator
+
+    if feature == "LBP":
+        return LBPTrainEvaluator(lbp_catalog(ww, wh), device=device)
+    return HaarTrainEvaluator(haar_catalog(ww, wh, feature), device=device)
+
+
+def mine_case(feature: str, ww: int, wh: int, sizes, seed: int, **opts):
+    """One miner case on the CPU: (levels with the port's LazyLevel, the
+    port's stages from stump_specs over mine_level_specs's windows, the
+    specs themselves)."""
+    from cascadeclassifier_tpu_torch.data.negreader import LazyLevel
+    from cascadeclassifier_tpu_torch.models.model import Stage, WeakTree
+    from cascadeclassifier_tpu_torch.train import mine
+
+    rng = np.random.default_rng(seed)
+    levels = levels_of(mine_level_specs(seed, ww, wh), LazyLevel)
+    ids = mine_candidates(feature, ww, wh, rng)
+    ev = mine_evaluator(feature, ww, wh, "cpu")
+    ev.set_samples(mine.level_windows(mine.pack_levels(levels, ww, wh, "cpu"), ww, wh))
+    values = ev.values_for_vars(ids).numpy()
+    specs = stump_specs(values, ids, sizes, rng, feature == "LBP", **opts)
+    return levels, stages_of(specs, Stage, WeakTree), specs
+
+
+def mine_edge_cases():
+    """(label, feature, ww, wh, levels, stages) of the miner's edges, on
+    the CPU: every stage set of MINE_STAGE_SIZES over Haar BASIC at 12x12
+    (past 17 trees with stump_specs's knife-edge thresholds, where the
+    prefix's order decides a window);
+    -0.0 leaves; Haar ALL at 24x24 with tilted features touching the
+    window's edge; LBP at 12x12 and 24x24 with all-bits subsets (flat
+    windows give code 255); each on mine_level_specs's levels (nf = 0
+    windows, the last row and column, a scale-1 lazy level, a source 2
+    pixels wide, eager levels, one window, an empty level)."""
+    for i, sizes in enumerate(MINE_STAGE_SIZES):
+        yield (f"BASIC 12x12, stages of {sizes} trees", "BASIC", 12, 12,
+               *mine_case("BASIC", 12, 12, sizes, 1000 + i, knife=sum(sizes) > 17)[:2])
+    yield ("BASIC 24x24, -0.0 leaves", "BASIC", 24, 24,
+           *mine_case("BASIC", 24, 24, (7, 30), 1100, neg_zero=True)[:2])
+    for sizes in ((9,), (16, 240, 45)):
+        yield (f"ALL 24x24, tilted at the window's edge, stages of {sizes} trees", "ALL", 24,
+               24, *mine_case("ALL", 24, 24, sizes, 1200 + len(sizes),
+                              knife=sum(sizes) > 17)[:2])
+    for side, sizes in ((12, (3, 17)), (24, (16, 240, 45))):
+        yield (f"LBP {side}x{side}, all-bits subsets, stages of {sizes} trees", "LBP", side,
+               side, *mine_case("LBP", side, side, sizes, 1300 + side, all_bits=True,
+                                knife=sum(sizes) > 17)[:2])
+
+
+def mine_inputs(feature: str, ww: int, wh: int, levels, stages, device):
+    """mine's arguments for a case on device."""
+    from cascadeclassifier_tpu_torch.train import mine
+
+    ev = mine_evaluator(feature, ww, wh, device)
+    used = sorted({int(t.feature_idx[0]) for s in stages for t in s.trees})
+    return (mine.pack_levels(levels, ww, wh, device), mine.features_of(ev, used),
+            mine.tree_table(stages, used, feature == "LBP", device))
+
+
+def mine_edge_mismatches(device):
+    """The miner's kernel over mine_edge_cases() against its plain version
+    on the same inputs on device → (cases run, windows, descriptions of
+    the cases that differ)."""
+    from cascadeclassifier_tpu_torch.train import mine
+
+    n, windows, bad = 0, 0, []
+    for label, feature, ww, wh, levels, stages in mine_edge_cases():
+        args = mine_inputs(feature, ww, wh, levels, stages, device)
+        got = mine.mine(*args, ww, wh)
+        want = mine.mine(*args, ww, wh, impl="ref")
+        n += 1
+        windows += got.numel()
+        if not torch.equal(got, want):
+            bad.append(f"{label}: {int((got != want).sum())} of {got.numel()} windows differ")
+    return n, windows, bad

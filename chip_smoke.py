@@ -8,7 +8,7 @@ TorchDetector on cuda:0, on 1920x1080 synthetic frames at scaleFactor
 .xml, 22 upright stages, engine "fused") on the plain vertical stack
 (pack_band=False):
 
-  (a) build     compile the CUDA kernels from csrc/ (thirteen sources), one nvcc per
+  (a) build     compile the CUDA kernels from csrc/ (fourteen sources), one nvcc per
                 source, all started together (seconds), and the host library
                 (csrc/cctpu_io.cpp, g++) that groups every frame's rects
   (b) integral  kernel integral vs its plain twin on frame 0's canvas, as
@@ -158,7 +158,36 @@ budgets):
                 path's raw windows on a 1080p frame with planted marks.
                 Check 5: a hand-built cascade of stumps over tilted and
                 upright Haar ALL features through predict_levels on
-                40 000 mining windows, the card's masks equal to the CPU's
+                40 000 mining windows, the card's masks equal to the CPU's.
+                The miner (train/mine.py, csrc/mine.cu) runs every mining
+                superbatch of a stump cascade as one launch: check 2
+                holds kernel mine's launches equal to its superbatches,
+                and each stage's fill_negatives is printed net of the
+                CPU's check inside it ((t), (u) and (v) too; (u)'s depth-2
+                trees and (v)'s HOG take the gather path and no launch)
+
+Right after (s), on its data:
+
+  (z) mine      the dense miner's kernel. Check 1: kernel mine equal to
+                its plain version mine_ref on the card on
+                utils/edges.py's mine_edge_cases (17 cases: nf = 0
+                windows, tree thresholds equal to window values, the
+                level's last row and column, a scale-1 lazy level, a
+                source 2 pixels wide, eager levels, a level of one window
+                and an empty one, stage sets of 1 to 301 trees across the
+                scan's blocks of 16 and 256, -0.0 leaves, LBP all-bits
+                subsets and codes, tilted features touching the window's
+                edge), one launch a case. Check 2: 10 superbatches of
+                131 072 windows of (s)'s backgrounds under (s)'s 3 trained
+                stages through mine, mine_ref and the library composite
+                (utils/time_mine.py), each mask of mine equal to
+                mine_ref's: ms a superbatch (levels to host mask), levels,
+                launches and windows a superbatch, windows/s, the
+                kernel path apart (pack_levels alone, the launch alone in
+                CUDA events, the fetch), the windows reaching each stage,
+                the bound (each covered level pixel once, integer work at
+                the INT32 rate: covered_pixels, mine_ops, mixed_bound);
+                ptxas's registers and spills of the kernel's three kinds
 
 LBP and the other boost types, on (s)'s data:
 
@@ -313,6 +342,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, device memory
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 F64_OPS_PER_S = 34e12  # H100 SXM, float64 outside the tensor cores
+INT32_OPS_PER_S = F32_OPS_PER_S / 2  # 64 INT32 lanes an SM against 128 FP32; an IMAD counts 2
 
 
 def fail(msg: str):
@@ -955,7 +985,8 @@ def main():
     # ------------------------------------------------------------------
     # (s) training, (t) LBP and the other boost types
     values_extra = {}  # kernel name -> {key: value}: further numbers beside the kernel's
-    vec, bg = training_phase(dev, timed, work, errs, launches, timed_extra)
+    vec, bg, s_stages = training_phase(dev, timed, work, errs, launches, timed_extra)
+    mine_phase(dev, bg, s_stages, timed, work, errs, values_extra)
     boost_types_phase(dev, vec, bg, timed, work, errs, launches, timed_extra, values_extra)
 
     # ------------------------------------------------------------------
@@ -1027,6 +1058,9 @@ def main():
         "hog_eval": ("cascadeclassifier_tpu_torch/csrc/hog_eval.cu",
                      "cascadeclassifier_tpu/train/evaluators.py:296-310 (XLA einsum and dot, "
                      "not Pallas); cascadeclassifier_tpu/ops/features.py:578 (XLA eval_hog)"),
+        "mine": ("cascadeclassifier_tpu_torch/csrc/mine.cu",
+                 "cascadeclassifier_tpu/train/predictor.py:518 (XLA _dense_chunk_fn, not "
+                 "Pallas)"),
     })
     kernels = []
     for name, (fk, fr, flib, plain_reps) in timed.items():
@@ -1097,6 +1131,8 @@ def checked_trainer(tag: str, mismatches: list, **kw):
 
             def predict_levels(levels, ww, wh):
                 got = real(levels, ww, wh)
+                if self.stages and sum(len(lv[1]) for lv in levels):
+                    self.superbatches += 1
                 if first[0]:
                     first[0] = False
                     t0 = time.perf_counter()
@@ -1114,7 +1150,29 @@ def checked_trainer(tag: str, mismatches: list, **kw):
 
     trainer = Checked(**kw)
     trainer.check_s = []
+    trainer.superbatches = 0  # predict_levels calls that had windows and stages
     return trainer
+
+
+def check_mine_launches(tag: str, trainer, dense: bool) -> int:
+    """The dense miner's launches in a checked run: one a superbatch of a
+    stump cascade (Haar, LBP), none for deep trees or HOG (the gather
+    path, as the JAX package dispatches them) → the launches."""
+    from cascadeclassifier_tpu_torch import _build
+
+    n = _build.LAUNCHES.get("mine", 0)
+    want = trainer.superbatches if dense else 0
+    check(n == want, f"({tag}) kernel mine launched {n} times over {trainer.superbatches} "
+                     f"mining superbatches, expected {want}")
+    print(f"({tag}) the miner: {trainer.superbatches} superbatches, kernel mine launched {n} "
+          f"times ({'one a superbatch' if dense else 'the gather path'})", flush=True)
+    return n
+
+
+def net_fill(tm, trainer, si: int) -> str:
+    """fill_negatives of stage si less the CPU's check inside it."""
+    return (f"fill_negatives net of the CPU's check "
+            f"{tm['fill_negatives'][si] - trainer.check_s[si]:.2f} s")
 
 
 def split_library(vs, ws, rs, kept, total_w, total_r):
@@ -1291,6 +1349,7 @@ def training_phase(dev, timed, work, errs, launches, timed_extra):
     counts = dict(_build.LAUNCHES)
     launches["split_scan"] = counts.get("split_scan", 0)
     launches["split_scan_gather"] = counts.get("split_scan_gather", 0)
+    launches["mine"] = check_mine_launches("s", trainer, True)
     check(launches["split_scan_gather"] > 0,
           "kernel split_scan_gather was not launched on the main path")
     check(launches["split_scan"] == 0,
@@ -1311,7 +1370,8 @@ def training_phase(dev, timed, work, errs, launches, timed_extra):
                                             "train_stage")}
         print(f"(s) stage {si}: {len(trainer.stages[si].trees)} trees, "
               f"{sum(per_stage.values()):.2f} s (" + ", ".join(
-                  f"{k} {v:.2f}" for k, v in per_stage.items()) + ")", flush=True)
+                  f"{k} {v:.2f}" for k, v in per_stage.items()) +
+              f"; {net_fill(tm, trainer, si)})", flush=True)
     print("(s) phase totals (device synchronized at each scope's ends): " + ", ".join(
         f"{k} {sum(v):.2f} s over {len(v)}" for k, v in sorted(tm.items())), flush=True)
     n_trees = sum(len(s.trees) for s in trainer.stages)
@@ -1412,7 +1472,148 @@ def training_phase(dev, timed, work, errs, launches, timed_extra):
           f"levels, {total} windows, {n_ok} accepted, masks equal to the CPU's; "
           f"{time.perf_counter() - t5:.1f} s", flush=True)
     print(f"(s) phase took {time.perf_counter() - t0:.1f} s", flush=True)
-    return vec, bg
+    return vec, bg, trainer.stages
+
+
+def covered_pixels(packed, ww: int, wh: int) -> tuple:
+    """(lazy, eager) pixels of the levels that the table's windows cover,
+    each pixel of a level counted once however many windows hold it."""
+    from cascadeclassifier_tpu_torch.train import mine
+
+    sy, sx = wh // 2, ww // 2
+    masks = {}
+    for r in packed.table.tolist():
+        key = (r[mine.SRC_OFF], r[mine.EAGER], r[mine.SH], r[mine.SW], r[mine.DH], r[mine.DW])
+        m = masks.setdefault(key, np.zeros((r[mine.DH], r[mine.DW]), bool))
+        nx, first, last = r[mine.NX], r[mine.W0], r[mine.W0] + r[mine.COUNT] - 1
+        for gy in range(first // nx, last // nx + 1):  # grid row gy: columns c0..c1
+            c0 = first % nx if gy == first // nx else 0
+            c1 = last % nx if gy == last // nx else nx - 1
+            y, x = r[mine.OY] + gy * sy, r[mine.OX]
+            m[y:y + wh, x + c0 * sx:x + c1 * sx + ww] = True
+    per = [(k[1], int(m.sum())) for k, m in masks.items()]
+    return sum(c for e, c in per if not e), sum(c for e, c in per if e)
+
+
+def mine_ops(stages, reach, rects: dict, pixels: tuple, n: int) -> dict:
+    """Integer, f32 and f64 operations the masks of n windows need, reach[s]
+    windows evaluated by stage s, pixels (lazy, eager) level pixels
+    covered (covered_pixels): a lazy pixel's build 9 (the two passes' 2
+    products and 1 sum each, the rounding add, shift and clamp) and its
+    integrals 5 (the sum's two adds, the square and its two adds), an
+    eager pixel's integrals 5, counted once a level pixel; a window's norm
+    factor 6 integer (two 4-corner sums), 4 f64 (two products, the
+    difference, the sqrt) and its f32 cast; a Haar stump of k =
+    rects[feature] weighted rects 5k - 1 integer (3k corner adds, k
+    weights, k - 1 adds), 3 f32 (the conversion, the division, the
+    compare) and its f64 prefix add; a stage's difference and compare 2
+    f64. An IMAD or FMA counts as 2."""
+    ops = {"int": 14 * pixels[0] + 5 * pixels[1] + 6 * n, "f32": n, "f64": 4 * n}
+    for st, r in zip(stages, reach):
+        k = [rects[int(t.feature_idx[0])] for t in st.trees]
+        ops["int"] += r * sum(5 * x - 1 for x in k)
+        ops["f32"] += r * 3 * len(k)
+        ops["f64"] += r * (len(k) + 2)
+    return ops
+
+
+def mixed_bound(nbytes: float, ops: dict):
+    """(least ms, what bounds it) of work in several types: the bytes over
+    the memory rate, or the slowest type's operations over its rate (the
+    integer, f32 and f64 pipes run side by side)."""
+    rate = {"int": INT32_OPS_PER_S, "f32": F32_OPS_PER_S, "f64": F64_OPS_PER_S}
+    op = max(v / rate[k] for k, v in ops.items()) * 1e3
+    by = nbytes / HBM_BYTES_PER_S * 1e3
+    return (by, "bytes") if by >= op else (op, "operations")
+
+
+def mine_phase(dev, bg, stages, timed, work, errs, values_extra):
+    """(z), run right after (s) on its data: the dense miner's kernel at
+    its edges and on 10 superbatches of (s)'s backgrounds under (s)'s 3
+    trained stages; see the module docstring."""
+    from cascadeclassifier_tpu_torch import _build
+    from cascadeclassifier_tpu_torch.data.negreader import NegReader
+    from cascadeclassifier_tpu_torch.ops.features import haar_catalog
+    from cascadeclassifier_tpu_torch.train import mine
+    from cascadeclassifier_tpu_torch.train.evaluators import HaarTrainEvaluator
+    from cascadeclassifier_tpu_torch.utils import time_mine
+    from cascadeclassifier_tpu_torch.utils.edges import mine_edge_mismatches
+
+    # -- check 1: the kernel at its edges
+    t0 = time.perf_counter()
+    before = _build.LAUNCHES.get("mine", 0)
+    n_cases, n_win, bad = mine_edge_mismatches(dev)
+    torch.cuda.synchronize()
+    check(not bad, f"(z) kernel mine != mine_ref on the card: {bad}")
+    check(_build.LAUNCHES["mine"] - before == n_cases, "(z) the edge cases took other than one "
+                                                       "launch each")
+    print(f"(z) check 1: kernel mine equal to mine_ref on the card on {n_cases} edge cases "
+          f"(utils/edges.py: mine_edge_cases; {n_win} windows: nf = 0 windows, thresholds "
+          f"equal to values, the last row and column, a scale-1 lazy level, a source 2 pixels "
+          f"wide, eager levels, one window, an empty level, stage sets of 1 to 301 trees "
+          f"across the blocks of 16 and 256, -0.0 leaves, LBP all-bits subsets and codes, "
+          f"tilted features at the window's edge), one launch a case (tolerance: exact); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- check 2: 10 superbatches of 131 072 windows under (s)'s stages
+    t1 = time.perf_counter()
+    batches = time_mine.superbatches(NegReader(bg, 24, 24, lazy=True), 10)
+    check(len(batches) == 10, f"(z) {len(batches)} superbatches of (s)'s backgrounds")
+    ev = HaarTrainEvaluator(haar_catalog(24, 24, "BASIC"), device=dev)
+    rows = time_mine.time_superbatches(ev, stages, batches, 24, 24, dev)
+    check(all(r["kernel_launches"] == 1 for r in rows), "(z) a superbatch took other than one "
+                                                        "launch of kernel mine")
+    reach = time_mine.evaluated_trees(ev, stages, batches[0], 24, 24, dev)
+    for line in time_mine.report(rows).splitlines():
+        print(f"(z) check 2: {line}", flush=True)
+    print(f"(z) check 2: stages of {[len(st.trees) for st in stages]} stumps; windows reaching "
+          f"each stage of superbatch 0 {reach}; levels a superbatch "
+          f"{[r['levels'] for r in rows]}; each superbatch's kernel masks equal to mine_ref's "
+          f"(tolerance: exact); {time.perf_counter() - t1:.1f} s", flush=True)
+    used = sorted({int(t.feature_idx[0]) for st in stages for t in st.trees})
+    feats = mine.features_of(ev, used)
+    trees = mine.tree_table(stages, used, False, dev)
+    packed = mine.pack_levels(batches[0], 24, 24, dev)
+    wins = mine.level_windows(packed, 24, 24)
+    comp = time_mine.composite_tables(feats, trees, 24, 24)
+    timed["mine"] = (lambda: mine.mine(packed, feats, trees, 24, 24),
+                     lambda: mine.mine(packed, feats, trees, 24, 24, impl="ref"),
+                     lambda: time_mine.library_composite(wins, *comp), 2)
+    errs["mine"] = 0  # every mask equal (checked above)
+    srcs = {(r[mine.EAGER], r[mine.SRC_OFF]): r[mine.SH] * r[mine.SW]
+            for r in packed.table.tolist()}
+    nbytes = sum(srcs.values()) + 8 * packed.table.numel() + packed.n
+    rects = dict(zip(used, (feats.weights != 0).sum(dim=1).tolist()))
+    pixels = covered_pixels(packed, 24, 24)
+    ops = mine_ops(stages, reach, rects, pixels, packed.n)
+    work["mine"] = mixed_bound(nbytes, ops)
+    print(f"(z) check 2: superbatch 0's bound: {pixels[0]} lazy and {pixels[1]} eager level "
+          f"pixels covered, {packed.n} windows; {ops['int']} integer operations at "
+          f"{INT32_OPS_PER_S:.4g}/s, {ops['f32']} f32 at {F32_OPS_PER_S:.4g}/s, {ops['f64']} "
+          f"f64 at {F64_OPS_PER_S:.4g}/s; {nbytes} bytes at {HBM_BYTES_PER_S:.4g}/s -> "
+          f"{work['mine'][0]:.5f} ms ({work['mine'][1]})", flush=True)
+    kinds = {"ILi0E": "haar", "ILi1E": "haar_tilted", "ILi2E": "lbp"}
+    regs = {next((v for k, v in kinds.items() if k in name), name): (r, st, ld)
+            for name, r, st, ld in _build.kernel_resources("mine.cu")}
+    mean = {k: float(np.mean([r[k] for r in rows])) for k in (
+        "levels", "windows", "kernel_ms", "launch_ms", "pack_ms", "fetch_ms", "plain_ms",
+        "composite_ms")}
+    values_extra["mine"] = {
+        "levels_per_superbatch": mean["levels"], "windows_per_superbatch": mean["windows"],
+        "launches_per_superbatch": rows[0]["kernel_launches"],
+        "superbatch_ms": mean["kernel_ms"], "launch_ms_events": mean["launch_ms"],
+        "pack_levels_ms": mean["pack_ms"], "fetch_ms": mean["fetch_ms"],
+        "level_pixels_covered": list(pixels),
+        "plain_superbatch_ms": mean["plain_ms"], "composite_superbatch_ms": mean["composite_ms"],
+        "plain_launches_per_superbatch": rows[0]["plain_launches"],
+        "composite_launches_per_superbatch": rows[0]["composite_launches"],
+        "windows_per_s": mean["windows"] / mean["kernel_ms"] * 1e3,
+        "stage_reach": reach,
+        "ptxas": {name: list(v) for name, v in regs.items()},
+    }
+    for name, (r, st, ld) in regs.items():
+        print(f"(z) ptxas {name}: {r} registers, spill stores {st} B, loads {ld} B", flush=True)
+    print(f"(z) phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def tilted_stumps(samples, dev):
@@ -1623,6 +1824,7 @@ def boost_types_phase(dev, vec, bg, timed, work, errs, launches, timed_extra, va
     torch.cuda.synchronize()
     launches["cat_split"] = _build.LAUNCHES.get("cat_split", 0)
     check(launches["cat_split"] > 0, "kernel cat_split was not launched on the main path")
+    check_mine_launches("t", trainer, True)
     check(_build.LAUNCHES.get("split_scan_gather", 0) == 0,
           "LBP training launched the ordered split")
     check(len(trainer.stages) == 3, f"the LBP trainer trained {len(trainer.stages)} stages")
@@ -1634,7 +1836,8 @@ def boost_types_phase(dev, vec, bg, timed, work, errs, launches, timed_extra, va
                                             "train_stage")}
         print(f"(t) stage {si}: {len(trainer.stages[si].trees)} trees, "
               f"{sum(per_stage.values()):.2f} s (" + ", ".join(
-                  f"{k} {v:.2f}" for k, v in per_stage.items()) + ")", flush=True)
+                  f"{k} {v:.2f}" for k, v in per_stage.items()) +
+              f"; {net_fill(tm, trainer, si)})", flush=True)
     n_trees = sum(len(st.trees) for st in trainer.stages)
     print(f"(t) check 2: 3 stages of a 20-stage LBP run (24x24, 8464 features in one block, "
           f"GAB stumps, weak_count 100, minHitRate 0.995, maxFalseAlarm 0.5, 1000 + 2000 "
@@ -1776,7 +1979,8 @@ def trained_stage_times(tag: str, trainer, n: int):
         print(f"({tag}) stage {si}: {len(trees)} trees of depth up to "
               f"{max(_tree_depth(t) for t in trees)}, {sum(per_stage.values()):.2f} s (" +
               ", ".join(f"{k} {v:.2f}" for k, v in per_stage.items()) +
-              f"; fill_negatives holds {trainer.check_s[si]:.2f} s of the CPU's check)",
+              f"; fill_negatives holds {trainer.check_s[si]:.2f} s of the CPU's check; "
+              f"{net_fill(tm, trainer, si)})",
               flush=True)
     return tm
 
@@ -1825,6 +2029,7 @@ def deep_phase(dev, vec, bg, launches, values_extra):
     torch.cuda.synchronize()
     n_gather = _build.LAUNCHES.get("split_scan_gather", 0)
     check(n_gather > 0, "kernel split_scan_gather was not launched on the depth-2 path")
+    check_mine_launches("u", trainer, False)
     check(len(trainer.stages) == 3, f"the depth-2 trainer trained {len(trainer.stages)} stages")
     check(all(m == 0 for m in mismatches), f"depth-2 accept masks differ from the CPU's: "
                                            f"{mismatches}")
@@ -2039,6 +2244,7 @@ def hog_phase(dev, vec, bg, timed, work, errs, launches, timed_extra, values_ext
           f"HOG training launched hog_hist {launches['hog_hist']} and hog_eval "
           f"{launches['hog_eval']} times")
     check(len(trainer.stages) == 3, f"the HOG trainer trained {len(trainer.stages)} stages")
+    check_mine_launches("v", trainer, False)
     check(all(m == 0 for m in mismatches), f"HOG accept masks differ from the CPU's: "
                                            f"{mismatches}")
     tm = trained_stage_times("v", trainer, 3)
