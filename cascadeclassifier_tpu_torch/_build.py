@@ -112,12 +112,19 @@ _SIGNATURES = {
     # hist, norm, cells, var ids, n, p, features, k, the plan's scratch,
     # out, stream
     "cct_hog_eval": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
-    # level table, rows, lazy arena, eager arena, ww, wh, kind, corner
-    # offsets, weights, tilted flags, LBP points, tree features,
-    # thresholds, left and right leaves, subsets, trees, stage ends, stage
-    # thresholds, stages, out, windows, stream
-    "cct_mine": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                 _I, _P, _P, _I, _P, _L, _P],
+    # level table, rows, tiles, tile shape (tx, ty), hand-off count, lazy
+    # arena, eager arena, ww, wh, kind, corner offsets, weights, tilted
+    # flags, LBP points, tree features, thresholds, left and right leaves,
+    # subsets, trees, stage ends, stage thresholds, stages, out, windows,
+    # stream
+    "cct_mine": [_P, _I, _L, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                 _P, _P, _I, _P, _P, _I, _P, _L, _P],
+    # ww, wh, kind, tx, ty, shared bytes a CTA (out), CTAs an SM (out)
+    "cct_mine_info": [_I, _I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    # cct_mine's arguments without the tiles, the shape and the hand-off
+    # count (the warp-a-window design)
+    "cct_mine_warp": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _P, _P, _I, _P, _L, _P],
 }
 
 _lib = None

@@ -9,19 +9,23 @@ compares (LBP), and the f64 stump walk. For every window of every mining
 level handed over, one byte: 1 where every stage accepts.
 
 - ``pack_levels`` turns the trainer's levels ((img, positions, key), img a
-  ``LazyLevel`` or an array) into a level table on the device, one int64
-  row a run of consecutive windows of a level's grid (``LEVEL_COLS``), and
-  two uint8 arenas: the lazy levels' sources (``SourceArena``, each
-  uploaded once and found again by its ``src_id``) and the eager levels'
-  images (uploaded per call).
+  ``LazyLevel`` or an array, positions a ``GridRun`` or an (m, 2) array)
+  into a level table on the device, one int64 row a run of consecutive
+  windows of a level's grid (``LEVEL_COLS``: a ``GridRun`` gives its row
+  in O(1), an array is checked and cut into runs), each row's first tile
+  under each kind's tile shape (``tile_shape``), and two uint8 arenas: the
+  lazy levels' sources (``SourceArena``, each uploaded once and found
+  again by its ``src_id``) and the eager levels' images (uploaded per
+  call).
 - ``features_of`` takes the used features' records from the evaluator
   (Haar: 3 rects of 4 corner offsets, integer weights, a tilted flag;
   LBP: the 16 points of the corner grid).
 - ``tree_table`` flattens the stages: each tree's feature row,
   threshold (LBP: subset words) and f32 leaves; each stage's end and
   threshold.
-- ``mine`` launches ``csrc/mine.cu`` for a table on a CUDA device (one
-  launch a call, counted in ``_build.LAUNCHES["mine"]``) and
+- ``mine`` launches ``csrc/mine.cu``'s tile kernel for a table on a CUDA
+  device (one launch a call, counted in ``_build.LAUNCHES["mine"]``; a CTA
+  a tile of a row's window grid, see the source) and
   ``mine_ref`` for one on the CPU, or with ``impl="ref"``: the plain
   version on the same arguments, built from ``build_level``,
   ``haar_rows`` / ``lbp_rows``, ``integral_tilted``, ``divide_nf`` and
@@ -29,7 +33,9 @@ level handed over, one byte: 1 where every stage accepts.
   checks that the plain version's f32 corner product is exact for the
   features at this window (``check_exact``), as the kernel's integer sums
   agree with it only then; the plain version needs no such check and
-  mines any window, as the JAX package does. ``level_windows`` cuts
+  mines any window, as the JAX package does. ``mine_warp`` launches the
+  design the tile kernel replaced (a warp a window), for timing beside it
+  only (``utils/time_mine.py``). ``level_windows`` cuts
   the windows of a table (the plain version's, and the gather path's
   for deep-tree and HOG cascades).
 
@@ -43,11 +49,13 @@ f64 prefix over the tree axis in ``scan_cumsum``'s blocked order.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from cascadeclassifier_tpu_torch import _build
+from cascadeclassifier_tpu_torch.data.negreader import GridRun
 from cascadeclassifier_tpu_torch.ops.integral import integral_tilted
 from cascadeclassifier_tpu_torch.ops.resize import build_level
 from cascadeclassifier_tpu_torch.train.evaluators import (
@@ -59,13 +67,33 @@ from cascadeclassifier_tpu_torch.train.evaluators import (
     lbp_rows,
 )
 
-LEVEL_COLS = ("src_off", "eager", "sh", "sw", "dh", "dw", "oy", "ox", "nx", "w0", "count", "out")
-SRC_OFF, EAGER, SH, SW, DH, DW, OY, OX, NX, W0, COUNT, OUT = range(len(LEVEL_COLS))
-KIND_HAAR, KIND_HAAR_TILTED, KIND_LBP = 0, 1, 2  # csrc/mine.cu's kinds
+LEVEL_COLS = ("src_off", "eager", "sh", "sw", "dh", "dw", "oy", "ox", "nx", "w0", "count", "out",
+              "tile_haar", "tile_haar_tilted", "tile_lbp")
+SRC_OFF, EAGER, SH, SW, DH, DW, OY, OX, NX, W0, COUNT, OUT, TILE = range(len(LEVEL_COLS) - 2)
+KIND_HAAR, KIND_HAAR_TILTED, KIND_LBP = 0, 1, 2  # csrc/mine.cu's kinds; column TILE + kind
+KINDS = (KIND_HAAR, KIND_HAAR_TILTED, KIND_LBP)
+# csrc/mine.cu's tile kernel: threads a CTA, the longest stage a thread a
+# window walks (kStageMax), ints of a staged tree record and of a hand-off
+# state, a CTA's shared memory at most
+THREADS, STAGE_MAX, REC_INTS, HAND_INTS, MAX_SHARED = 256, 32, 32, 34, 232448
+# a tile's shared memory at most: MIN_BLOCKS CTAs an SM (228 KB, 1 KB each
+# reserved; mine.cu's kMinBlocks)
+MIN_BLOCKS = 3
+TILE_BUDGET = (233472 // MIN_BLOCKS) - 1024
+# (tx, ty) tried in order: the first within TILE_BUDGET, else the last
+# within MAX_SHARED
+TILE_CANDIDATES = ((16, 8), (16, 4), (8, 8), (8, 4), (4, 4), (4, 2), (2, 2), (2, 1), (1, 1))
+# a tile hands its survivors to a warp each once no more are alive than
+# its warps (one survivor a warp), and before any stage of STAGE_MAX
+# trees or more
+HAND_LIVE = THREADS // 32
 MAX_TREES = 16 ** 4  # the blocked scan's leaves and 3 carried levels (mine.cu: kLevels)
 EXACT_LIMIT = 1 << 24  # f32 holds every integer up to here
 CHUNK_WINDOWS = 65536  # windows a pass of the plain version or the gather path takes at most
 ARENA_CAP_BYTES = 1 << 30  # the source arena starts over past this
+# bytes kept free past the last source: the tile kernel reads a source
+# row's byte after idx0 even where a 1-pixel-wide source weighs it 0
+ARENA_PAD = 16
 PIXEL_MAX = 255
 # LBP: the 4 corner points (top left, top right, bottom left, bottom
 # right) of each of the 9 cells, row-major, in the 4 x 4 grid
@@ -86,38 +114,76 @@ class SourceArena:
         self.offsets = {}
 
     def place(self, srcs: dict) -> dict:
-        """srcs {key: (h, w) uint8 array} → {key: offset}; one upload for
-        the sources not yet in the arena."""
+        """srcs {key: (h, w) uint8 array} → {key: offset}; each source not
+        yet in the arena copied straight into its slice."""
         new = {k: v for k, v in srcs.items() if k not in self.offsets}
         need = sum(v.size for v in new.values())
         if self.used + need > ARENA_CAP_BYTES:
             self.offsets, self.used, new = {}, 0, dict(srcs)
             need = sum(v.size for v in new.values())
         if new:
-            if self.used + need > self.buf.numel():
-                grown = torch.empty(max(2 * self.buf.numel(), self.used + need),
+            if self.used + need + ARENA_PAD > self.buf.numel():
+                grown = torch.empty(max(2 * self.buf.numel(), self.used + need + ARENA_PAD),
                                     dtype=torch.uint8, device=self.device)
                 grown[:self.used] = self.buf[:self.used]
                 self.buf = grown
-            host = np.concatenate([np.ascontiguousarray(v, np.uint8).reshape(-1)
-                                   for v in new.values()])
-            self.buf[self.used:self.used + need] = torch.from_numpy(host).to(self.device)
             for k, v in new.items():
+                self.buf[self.used:self.used + v.size].copy_(
+                    torch.from_numpy(np.ascontiguousarray(v, np.uint8).reshape(-1)))
                 self.offsets[k] = self.used
                 self.used += v.size
         return {k: self.offsets[k] for k in srcs}
 
 
+def tile_layout(ww: int, wh: int, kind: int, tx: int, ty: int) -> dict:
+    """csrc/mine.cu's tile_layout: a tile's pixels across and down, the
+    integrals' row pitch and its shared memory in ints."""
+    pw, ph = (ww // 2) * (tx - 1) + ww, (wh // 2) * (ty - 1) + wh
+    pitch = (pw + 1) | 1
+    cells = (ph + 1) * pitch
+    u = (2 if kind == KIND_HAAR_TILTED else 1) * cells
+    u += u & 1
+    build = u + (ph * pw + 3) // 4 + 3 * ph + 3 * pw + ph
+    if kind != KIND_LBP:
+        build += ty * pw  # the window rows' column sums of squares
+    if kind == KIND_HAAR_TILTED:
+        build += 3 * (pw + 2 * (ph + 1) + 1)
+    walk = u + STAGE_MAX * REC_INTS + tx * ty * HAND_INTS
+    return {"pw": pw, "ph": ph, "pitch": pitch, "ints": max(build, walk)}
+
+
+@functools.lru_cache(maxsize=None)
+def tile_shape(ww: int, wh: int, kind: int):
+    """(tx, ty) windows a tile for this window and kind (TILE_CANDIDATES),
+    or None where even one window's tile passes a CTA's shared memory."""
+    for tx, ty in TILE_CANDIDATES:
+        if tx * ty <= THREADS and 4 * tile_layout(ww, wh, kind, tx, ty)["ints"] <= TILE_BUDGET:
+            return tx, ty
+    one = TILE_CANDIDATES[-1]
+    return one if 4 * tile_layout(ww, wh, kind, *one)["ints"] <= MAX_SHARED else None
+
+
+def run_tiles(nx, w0, count, tx: int, ty: int):
+    """Tiles of tx x ty windows over each run's grid rows (the first to
+    the last it touches) and all nx columns (arrays over runs)."""
+    rows = (w0 + count - 1) // nx - w0 // nx + 1
+    return -(-nx // tx) * -(-rows // ty)
+
+
 @dataclasses.dataclass
 class Levels:
-    """A superbatch's level table (R, 12) int64 (``LEVEL_COLS``), the two
-    arenas, its window count and the windows of each level handed over."""
+    """A superbatch's level table (R, 15) int64 (``LEVEL_COLS``), the two
+    arenas, its window count, the windows of each level handed over and,
+    by kind, the tile shape and the table's tiles (None where the window
+    takes no tile)."""
 
     table: torch.Tensor
     lazy: torch.Tensor
     eager: torch.Tensor
     n: int
     counts: list
+    shapes: tuple
+    tiles: tuple
 
 
 @dataclasses.dataclass
@@ -163,68 +229,120 @@ class Trees:
     n_features: int
 
 
-def pack_levels(levels, ww: int, wh: int, device, arena: SourceArena | None = None) -> Levels:
-    """levels [(img, positions (m, 2) (px, py), key)] → Levels on device.
+def _array_rows(arrays, dims, ww: int, wh: int):
+    """Positions (m, 2) (px, py) of the levels in arrays → (level index,
+    oy, ox, nx, w0, count) a run, all levels checked and cut together."""
+    sy, sx = wh // 2, ww // 2
+    cnt = np.array([len(p) for _i, p in arrays])
+    first = np.concatenate(([0], np.cumsum(cnt)[:-1]))
+    lvl = np.repeat(np.arange(len(arrays)), cnt)
+    pos = np.concatenate([np.asarray(p, np.int64).reshape(-1, 2) for _i, p in arrays])
+    px, py = pos[:, 0], pos[:, 1]
+    ox, oy = np.minimum.reduceat(px, first), np.minimum.reduceat(py, first)
+    dx, dy = px - ox[lvl], py - oy[lvl]
+    if (dx % sx).any() or (dy % sy).any():
+        raise ValueError(f"level positions off the grid of stride ({sy}, {sx})")
+    dims = dims[[i for i, _p in arrays]]
+    if (px + ww > dims[lvl, 1]).any() or (py + wh > dims[lvl, 0]).any():
+        raise ValueError("level positions past their level")
+    ix, iy = dx // sx, dy // sy
+    nx = np.maximum.reduceat(ix, first) + 1
+    q = iy * nx[lvl] + ix
+    cut = np.ones(len(q), bool)
+    cut[1:] = np.diff(q) != 1
+    cut[first] = True
+    runs = np.flatnonzero(cut)
+    rl = lvl[runs]
+    idx = np.array([i for i, _p in arrays])[rl]
+    return np.column_stack([idx, oy[rl], ox[rl], nx[rl], q[runs],
+                            np.diff(np.append(runs, len(q)))])
 
-    Each level's positions must lie on its grid of stride (ww // 2,
-    wh // 2) from its least px and py, inside the level; each run of
-    consecutive grid indices (row-major over the level's nx columns)
-    becomes one table row, so a schedule level (the partial first row
-    and full rows after it) is one row, and the windows come out in the
-    order given. A level without positions has no row. The positions of
-    all levels are checked and cut into runs together."""
+
+def pack_levels(levels, ww: int, wh: int, device, arena: SourceArena | None = None) -> Levels:
+    """levels [(img, positions, key)] → Levels on device.
+
+    positions: a ``GridRun`` (the reader's schedule levels), taken in
+    O(1), or an (m, 2) (px, py) array, which must lie on its grid of
+    stride (ww // 2, wh // 2) from its least px and py, inside the level;
+    each run of consecutive grid indices (row-major over the level's nx
+    columns) becomes one table row, so a schedule level (the partial
+    first row and full rows after it) is one row either way, and the
+    windows come out in the order given. A level without positions has
+    no row. The arrays of all levels are checked and cut into runs
+    together."""
     device = torch.device(device)
     arena = SourceArena(device) if arena is None else arena
     sy, sx = wh // 2, ww // 2
     counts = [len(lv[1]) for lv in levels]
     live = [lv for lv, c in zip(levels, counts) if c]
-    table = np.zeros((0, len(LEVEL_COLS)), np.int64)
-    lazy_src, eager_img, heads = {}, {}, []
+    lazy_src, eager_img = {}, {}
     for img, _pos, _key in live:
-        dh, dw = int(img.shape[0]), int(img.shape[1])
-        if hasattr(img, "src"):  # a LazyLevel
-            key = (img.src_id, img.src.shape)
-            lazy_src.setdefault(key, img.src)
-            heads.append((key, 0, img.src.shape[0], img.src.shape[1], dh, dw))
+        src = getattr(img, "src", None)
+        if src is not None:  # a LazyLevel
+            lazy_src.setdefault((img.src_id, src.shape), src)
         else:
-            key = id(img)
-            eager_img.setdefault(key, np.asarray(img, np.uint8))
-            heads.append((key, 1, dh, dw, dh, dw))
+            eager_img.setdefault(id(img), np.asarray(img, np.uint8))
     lazy_off = arena.place(lazy_src)
     eager_off, eager_parts, at = {}, [], 0
     for key, a in eager_img.items():
         eager_off[key] = at
         eager_parts.append(a.reshape(-1))
         at += a.size
-    if live:
-        cnt = np.array([len(lv[1]) for lv in live])
-        first = np.concatenate(([0], np.cumsum(cnt)[:-1]))
-        lvl = np.repeat(np.arange(len(live)), cnt)
-        pos = np.concatenate([np.asarray(lv[1], np.int64).reshape(-1, 2) for lv in live])
-        px, py = pos[:, 0], pos[:, 1]
-        ox, oy = np.minimum.reduceat(px, first), np.minimum.reduceat(py, first)
-        dx, dy = px - ox[lvl], py - oy[lvl]
-        if (dx % sx).any() or (dy % sy).any():
-            raise ValueError(f"level positions off the grid of stride ({sy}, {sx})")
-        dims = np.array([h[4:6] for h in heads], np.int64)
-        if (px + ww > dims[lvl, 1]).any() or (py + wh > dims[lvl, 0]).any():
-            raise ValueError("level positions past their level")
-        ix, iy = dx // sx, dy // sy
-        nx = np.maximum.reduceat(ix, first) + 1
-        q = iy * nx[lvl] + ix
-        cut = np.ones(len(q), bool)
-        cut[1:] = np.diff(q) != 1
-        cut[first] = True
-        runs = np.flatnonzero(cut)
-        rl = lvl[runs]
-        off = np.array([(eager_off if h[1] else lazy_off)[h[0]] for h in heads], np.int64)
-        hd = np.array([h[1:] for h in heads], np.int64)
-        table = np.column_stack([off[rl], hd[rl], oy[rl], ox[rl], nx[rl], q[runs],
-                                 np.diff(np.append(runs, len(q))), runs])
+    # a row a level (src_off, eager, sh, sw, dh, dw, then oy, ox, nx, w0,
+    # count of its GridRun, O(1), or zeros for positions cut below)
+    heads, arrays = [], []
+    for i, (img, pos, _key) in enumerate(live):
+        src = getattr(img, "src", None)
+        if src is not None:
+            head = (lazy_off[img.src_id, src.shape], 0, *src.shape, img.h, img.w)
+        else:
+            head = (eager_off[id(img)], 1, *img.shape, *img.shape)
+        if type(pos) is GridRun:
+            # its row in O(1), as the array path gives it for the same
+            # positions: from the run's first grid row, and cut to its
+            # windows where it lies in one grid row
+            if pos.sx != sx or pos.sy != sy:
+                raise ValueError(f"level positions off the grid of stride ({sy}, {sx})")
+            nx, first, n = pos.nx, pos.first, pos.count
+            r0, c0 = divmod(first, nx)
+            if r0 == (first + n - 1) // nx:
+                heads.append((*head, pos.oy + r0 * sy, pos.ox + c0 * sx, n, 0, n))
+            else:
+                heads.append((*head, pos.oy + r0 * sy, pos.ox, nx, first - r0 * nx, n))
+        else:
+            heads.append((*head, 0, 0, 1, 0, 0))
+            arrays.append((i, pos))
+    shapes = tuple(tile_shape(ww, wh, k) for k in KINDS)
+    tiles = [0 if shape else None for shape in shapes]
+    table = np.zeros((0, len(LEVEL_COLS)), np.int64)
+    if heads:
+        hd = np.array(heads, np.int64)
+        grid = hd[:, 10] > 0
+        if grid.any():
+            g = hd[grid]
+            ends = g[:, 6] + ((g[:, 9] + g[:, 10] - 1) // g[:, 8]) * sy + wh
+            right = g[:, 7] + (g[:, 8] - 1) * sx + ww
+            if (ends > g[:, 4]).any() or (right > g[:, 5]).any():
+                raise ValueError("level positions past their level")
+        if arrays:  # the levels' runs, in level order
+            runs = _array_rows(arrays, hd[:, 4:6], ww, wh)
+            li = np.concatenate([np.flatnonzero(grid), runs[:, 0]])
+            order = np.argsort(li, kind="stable")
+            hd = np.concatenate([hd[grid], np.column_stack([hd[runs[:, 0], :6], runs[:, 1:]])])
+            hd = hd[order]
+        nx, w0, cnt = hd[:, 8], hd[:, 9], hd[:, 10]
+        first_tile, done = [], {}
+        for k, shape in enumerate(shapes):
+            if shape not in done:
+                per = run_tiles(nx, w0, cnt, *shape) if shape else np.zeros_like(cnt)
+                done[shape] = np.cumsum(per) - per, int(per.sum())
+            first_tile.append(done[shape][0])
+            tiles[k] = done[shape][1] if shape else None
+        table = np.column_stack([hd, np.cumsum(cnt) - cnt, *first_tile])
     eager = (torch.from_numpy(np.concatenate(eager_parts)).to(device) if eager_parts
              else torch.empty(0, dtype=torch.uint8, device=device))
     return Levels(torch.from_numpy(np.ascontiguousarray(table, np.int64)).to(device), arena.buf,
-                  eager, int(sum(counts)), counts)
+                  eager, int(sum(counts)), counts, shapes, tuple(tiles))
 
 
 def exact_bound(feats: Features, ww: int, wh: int) -> int:
@@ -404,29 +522,79 @@ def _check_args(levels: Levels, feats: Features, trees: Trees, ww: int, wh: int)
     check_exact(feats, ww, wh)
 
 
+def _ptr(x):
+    return 0 if x is None else x.data_ptr()
+
+
+def _tree_args(feats: Features, trees: Trees) -> tuple:
+    return (feats.kind, _ptr(feats.offsets), _ptr(feats.weights), _ptr(feats.tilted),
+            _ptr(feats.points), trees.feature.data_ptr(), trees.thr.data_ptr(),
+            trees.left.data_ptr(), trees.right.data_ptr(), _ptr(trees.subsets),
+            trees.feature.shape[0], trees.stage_end.data_ptr(), trees.stage_thr.data_ptr(),
+            trees.stage_end.shape[0])
+
+
+def tile_args(levels: Levels, feats: Features, trees: Trees, ww: int, wh: int, out) -> tuple:
+    """cct_mine's arguments for these levels, trees and the (n,) out."""
+    return (levels.table.data_ptr(), levels.table.shape[0], levels.tiles[feats.kind],
+            *levels.shapes[feats.kind], HAND_LIVE, levels.lazy.data_ptr(),
+            levels.eager.data_ptr(), ww, wh, *_tree_args(feats, trees), out.data_ptr(), levels.n,
+            _build.stream_of(out))
+
+
 def mine(levels: Levels, feats: Features, trees: Trees, ww: int, wh: int, impl: str = "auto"):
     """(n,) uint8 accept mask of every window of the levels (1: every
-    stage accepts), in the levels' order; one launch of csrc/mine.cu on a
-    CUDA device (raises where ``check_exact`` fails), ``mine_ref`` on the
-    CPU or with impl="ref"."""
+    stage accepts), in the levels' order; one launch of csrc/mine.cu's
+    tile kernel on a CUDA device (raises where ``check_exact`` fails or
+    no tile fits the window), ``mine_ref`` on the CPU or with
+    impl="ref"."""
     if _build.use_ref(levels.table, impl):
         return mine_ref(levels, feats, trees, ww, wh)
     _check_args(levels, feats, trees, ww, wh)
+    shape = levels.shapes[feats.kind]
+    if shape is None:
+        raise ValueError(f"window {wh}x{ww}: one window's tile passes a CTA's shared memory")
     dev = levels.table.device
     out = torch.empty(levels.n, dtype=torch.uint8, device=dev)
     if levels.n == 0:
         return out
-
-    def ptr(x):
-        return 0 if x is None else x.data_ptr()
-
-    code = _build.lib().cct_mine(
-        levels.table.data_ptr(), levels.table.shape[0], levels.lazy.data_ptr(),
-        levels.eager.data_ptr(), ww, wh, feats.kind, ptr(feats.offsets), ptr(feats.weights),
-        ptr(feats.tilted), ptr(feats.points), trees.feature.data_ptr(), trees.thr.data_ptr(),
-        trees.left.data_ptr(), trees.right.data_ptr(), ptr(trees.subsets),
-        trees.feature.shape[0], trees.stage_end.data_ptr(), trees.stage_thr.data_ptr(),
-        trees.stage_end.shape[0], out.data_ptr(), levels.n, _build.stream_of(out))
+    code = _build.lib().cct_mine(*tile_args(levels, feats, trees, ww, wh, out))
     _build.check(code, "cct_mine")
     _build.LAUNCHES["mine"] += 1
     return out
+
+
+def mine_warp(levels: Levels, feats: Features, trees: Trees, ww: int, wh: int):
+    """``mine`` by the design the tile kernel replaced (csrc/mine.cu's
+    warp_kernel: a warp a window), on a CUDA device only; timed beside
+    ``mine`` by utils/time_mine.py, never on the miner's path."""
+    if levels.table.device.type != "cuda":
+        raise ValueError("mine_warp runs on a CUDA device only")
+    _check_args(levels, feats, trees, ww, wh)
+    out = torch.empty(levels.n, dtype=torch.uint8, device=levels.table.device)
+    if levels.n == 0:
+        return out
+    code = _build.lib().cct_mine_warp(
+        levels.table.data_ptr(), levels.table.shape[0], levels.lazy.data_ptr(),
+        levels.eager.data_ptr(), ww, wh, *_tree_args(feats, trees), out.data_ptr(), levels.n,
+        _build.stream_of(out))
+    _build.check(code, "cct_mine_warp")
+    _build.LAUNCHES["mine_warp"] += 1
+    return out
+
+
+def tile_info(ww: int, wh: int, kind: int) -> dict:
+    """The tile kernel's shape for this window and kind, its shared bytes
+    a CTA by the source's layout and by ``tile_layout``, and the CTAs an
+    SM holds (CUDA occupancy API); needs the built library."""
+    import ctypes
+
+    shape = tile_shape(ww, wh, kind)
+    if shape is None:
+        raise ValueError(f"window {wh}x{ww}: no tile fits")
+    nbytes, ctas = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(_build.lib().cct_mine_info(ww, wh, kind, *shape, ctypes.byref(nbytes),
+                                            ctypes.byref(ctas)), "cct_mine_info")
+    return {"tile": shape, "shared_bytes": nbytes.value,
+            "layout_bytes": 4 * tile_layout(ww, wh, kind, *shape)["ints"],
+            "ctas_per_sm": ctas.value}

@@ -201,7 +201,9 @@ class CascadePredictor:
         """Mining predict over whole (image, scale) levels.
 
         levels: list of (img, positions, cache_key); img an (H, W) uint8
-        array or a LazyLevel. → per-level (len(positions),) bool masks."""
+        array or a LazyLevel, positions a GridRun (read in O(1), never
+        built) or an (m, 2) array. → per-level (len(positions),) bool
+        masks."""
         if not self.stages:
             return [np.ones(len(lv[1]), bool) for lv in levels]
         ev = self._make_ev()

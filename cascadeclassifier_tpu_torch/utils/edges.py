@@ -656,6 +656,42 @@ def mine_level_specs(seed: int, ww: int, wh: int):
     ]
 
 
+def tile_level_specs(seed: int, ww: int, wh: int, kind: int):
+    """Mining levels at the edges of the tile kernel's tiles
+    (``train/mine.py::tile_shape`` for the kind), specs as
+    mine_level_specs's: a run that starts and ends inside tiles (as a
+    GridRun and as positions); a level narrower and shorter than one
+    tile; a grid one window past a whole number of tiles each way, whose
+    last tile holds one window; a grid of one column (nx = 1)."""
+    from cascadeclassifier_tpu_torch.data.negreader import GridRun
+    from cascadeclassifier_tpu_torch.train import mine
+
+    tx, ty = mine.tile_shape(ww, wh, kind)
+    sy, sx = wh // 2, ww // 2
+    rng = np.random.default_rng(seed)
+
+    def level(nx, ny, oy=0, ox=0):  # a level (h, w) just holding the grid, a source for it
+        h, w = oy + sy * (ny - 1) + wh + 1, ox + sx * (nx - 1) + ww + 2
+        return (h, w), rng.integers(0, 256, (h // 2 + 3, w // 2 + 5)).astype(np.uint8)
+
+    nx, ny = tx + 3, 2 * ty + 1
+    dims, src = level(nx, ny, 2, 1)
+    mid = GridRun(1, 2, sx, sy, nx, tx // 2 + 1, nx * 2 * ty - 3)
+    pos = np.asarray(grid_positions(*dims, ww, wh, oy=2, ox=1))[tx + 2:nx * ty + 1]
+    small, small_src = level(max(1, tx - 3), max(1, ty - 1))
+    small_img = rng.integers(0, 256, small).astype(np.uint8)
+    one, one_src = level(tx + 1, ty + 1)
+    col, col_src = level(1, ty + 2)
+    return [
+        ("lazy", src, dims, 10, mid),
+        ("lazy", src, dims, 10, pos),
+        ("eager", small_img, small, None,
+         GridRun(0, 0, sx, sy, max(1, tx - 3), 0, max(1, tx - 3) * max(1, ty - 1))),
+        ("lazy", one_src, one, 11, GridRun(0, 0, sx, sy, tx + 1, 0, (tx + 1) * (ty + 1))),
+        ("lazy", col_src, col, 12, GridRun(0, 0, sx, sy, 1, 0, ty + 2)),
+    ]
+
+
 def levels_of(specs, lazy_cls) -> list:
     """The trainer's (img, positions, key) levels of mine_level_specs's
     specs, lazy levels as lazy_cls(src, src_id, w, h) (the port's
@@ -791,16 +827,20 @@ def mine_evaluator(feature: str, ww: int, wh: int, device):
     return HaarTrainEvaluator(haar_catalog(ww, wh, feature), device=device)
 
 
-def mine_case(feature: str, ww: int, wh: int, sizes, seed: int, **opts):
+def mine_case(feature: str, ww: int, wh: int, sizes, seed: int, tiles: bool = False, **opts):
     """One miner case on the CPU: (levels with the port's LazyLevel, the
     port's stages from stump_specs over mine_level_specs's windows, the
-    specs themselves)."""
+    specs themselves); tiles: tile_level_specs's levels after those."""
     from cascadeclassifier_tpu_torch.data.negreader import LazyLevel
     from cascadeclassifier_tpu_torch.models.model import Stage, WeakTree
     from cascadeclassifier_tpu_torch.train import mine
 
     rng = np.random.default_rng(seed)
-    levels = levels_of(mine_level_specs(seed, ww, wh), LazyLevel)
+    specs = mine_level_specs(seed, ww, wh)
+    if tiles:
+        kind = {"LBP": mine.KIND_LBP, "ALL": mine.KIND_HAAR_TILTED}.get(feature, mine.KIND_HAAR)
+        specs += tile_level_specs(seed + 1, ww, wh, kind)
+    levels = levels_of(specs, LazyLevel)
     ids = mine_candidates(feature, ww, wh, rng)
     ev = mine_evaluator(feature, ww, wh, "cpu")
     ev.set_samples(mine.level_windows(mine.pack_levels(levels, ww, wh, "cpu"), ww, wh))
@@ -818,7 +858,12 @@ def mine_edge_cases():
     window's edge; LBP at 12x12 and 24x24 with all-bits subsets (flat
     windows give code 255); each on mine_level_specs's levels (nf = 0
     windows, the last row and column, a scale-1 lazy level, a source 2
-    pixels wide, eager levels, one window, an empty level)."""
+    pixels wide, eager levels, one window, an empty level); then the tile
+    kernel's edges, on tile_level_specs's levels beside those: Haar BASIC
+    at 12x12 and 24x24 (runs starting and ending inside tiles, a level
+    inside one tile, a one-window last tile, nx = 1), a 13x11 window (odd,
+    sx != sy), Haar ALL at 24x24 with tilted features touching the window's
+    edge on every tile border, LBP at 24x24."""
     for i, sizes in enumerate(MINE_STAGE_SIZES):
         yield (f"BASIC 12x12, stages of {sizes} trees", "BASIC", 12, 12,
                *mine_case("BASIC", 12, 12, sizes, 1000 + i, knife=sum(sizes) > 17)[:2])
@@ -832,6 +877,15 @@ def mine_edge_cases():
         yield (f"LBP {side}x{side}, all-bits subsets, stages of {sizes} trees", "LBP", side,
                side, *mine_case("LBP", side, side, sizes, 1300 + side, all_bits=True,
                                 knife=sum(sizes) > 17)[:2])
+    for feature, ww, wh, sizes, label in (
+            ("BASIC", 12, 12, (3, 17, 20), "tile edges"),
+            ("BASIC", 24, 24, (2, 2, 4, 40), "tile edges"),
+            ("BASIC", 13, 11, (5, 12), "an odd window (sx != sy), tile edges"),
+            ("ALL", 24, 24, (9, 16, 40), "tilted features at the window's edge on tile borders"),
+            ("LBP", 24, 24, (3, 17), "tile edges")):
+        yield (f"{feature} {ww}x{wh}, {label}, stages of {sizes} trees", feature, ww, wh,
+               *mine_case(feature, ww, wh, sizes, 1400 + ww + wh + len(sizes), tiles=True,
+                          knife=sum(sizes) > 17, pass_rate=0.6)[:2])
 
 
 def mine_inputs(feature: str, ww: int, wh: int, levels, stages, device):
@@ -844,16 +898,18 @@ def mine_inputs(feature: str, ww: int, wh: int, levels, stages, device):
             mine.tree_table(stages, used, feature == "LBP", device))
 
 
-def mine_edge_mismatches(device):
-    """The miner's kernel over mine_edge_cases() against its plain version
-    on the same inputs on device → (cases run, windows, descriptions of
-    the cases that differ)."""
+def mine_edge_mismatches(device, run=None):
+    """The miner's kernel (run: ``mine.mine``, or ``mine.mine_warp``) over
+    mine_edge_cases() against its plain version on the same inputs on
+    device → (cases run, windows, descriptions of the cases that
+    differ)."""
     from cascadeclassifier_tpu_torch.train import mine
 
+    run = mine.mine if run is None else run
     n, windows, bad = 0, 0, []
     for label, feature, ww, wh, levels, stages in mine_edge_cases():
         args = mine_inputs(feature, ww, wh, levels, stages, device)
-        got = mine.mine(*args, ww, wh)
+        got = run(*args, ww, wh)
         want = mine.mine(*args, ww, wh, impl="ref")
         n += 1
         windows += got.numel()

@@ -1,5 +1,6 @@
 """Times the dense miner on real superbatches: the kernel
-(``train/mine.py::mine``, ``csrc/mine.cu``), its plain version
+(``train/mine.py::mine``, ``csrc/mine.cu``'s tile kernel), the design it
+replaced (``mine_warp``, a warp a window), its plain version
 (``mine_ref``) and a library composite, each from the trainer's levels to
 the mask on the host.
 
@@ -16,20 +17,29 @@ passing about 40 % of its survivors (chip_smoke hands over (s)'s trained
 stages instead).
 
 Per superbatch and path: the host's ms from the levels to the host mask
-(``pack_levels`` and the launch and the fetch for the kernel; ``mine_ref``
-with its level builds for the plain version; the composite on the same
-windows built beforehand, which its time leaves out), levels, windows,
-launches (the kernel's counted by the wrapper; the others' device kernels
-traced by torch.profiler on the first superbatch) and windows/s; and the
-kernel path's parts apart: ``pack_levels`` alone (host ms to the end of
-its uploads), the launch alone in CUDA events and the mask's fetch (host
-ms). Every superbatch's kernel mask must equal
-the plain version's. The composite is ``torch.cumsum`` integrals, a
-``torch.matmul`` corner product with TF32 off, the division, a
-``torch.cumsum`` f64 prefix over the trees and ``any``: a timing
+(``pack_levels`` and the launch and the fetch for the kernel, first with
+the upload of the superbatch's new sources into the arena, as the
+trainer meets them, then again with the sources on the card, in turns
+with the replaced design; ``mine_ref`` with its level builds for the plain
+version; the composite on the same windows built beforehand, which its
+time leaves out), levels, windows, launches (the kernels' counted by
+their wrappers; the others' device kernels traced by torch.profiler on
+the first superbatch) and windows/s; and the kernel path's parts apart:
+``pack_levels`` alone (host ms to the end of its uploads), the launch
+alone in CUDA events (the tile kernel's and the replaced design's, in
+turns on the same packed table) and the mask's fetch (host ms). Every
+superbatch's masks of both kernels must equal the plain version's.
+``hand_off_sweep`` times the tile kernel at several hand-off counts
+(``mine.HAND_LIVE``) on one superbatch, under the given stages and under
+a deeper synthetic cascade of 3, 6, 12, 24 and 48 stumps. The composite
+is ``torch.cumsum`` integrals, a ``torch.matmul`` corner product with
+TF32 off, the division, a ``torch.cumsum`` f64 prefix over the trees and
+``any``: a timing
 yardstick for upright Haar cascades, not bit-exact (its prefix is not
 ``scan_cumsum``'s order). Last, ptxas's registers and spills for each
-instantiation of the kernel (``_build.kernel_resources``).
+instantiation of both kernels (``_build.kernel_resources``) and, for the
+tile kernel at 24x24, each kind's tile, shared bytes a CTA and CTAs an
+SM (``mine.tile_info``).
 """
 
 from __future__ import annotations
@@ -158,9 +168,10 @@ def event_ms(fn) -> float:
 
 
 def time_superbatches(ev, stages, batches, ww: int, wh: int, dev) -> list:
-    """Each superbatch through the kernel, the plain version and the
-    composite → one dict a superbatch (see the module docstring); raises
-    where a kernel mask differs from the plain version's."""
+    """Each superbatch through the kernel, the replaced design, the plain
+    version and the composite → one dict a superbatch (see the module
+    docstring); raises where a kernel's mask differs from the plain
+    version's."""
     from cascadeclassifier_tpu_torch import _build
     from cascadeclassifier_tpu_torch.train import mine
 
@@ -169,28 +180,40 @@ def time_superbatches(ev, stages, batches, ww: int, wh: int, dev) -> list:
     trees = mine.tree_table(stages, used, ev.maxCatCount > 0, dev)
     comp = composite_tables(feats, trees, ww, wh) if feats.kind == mine.KIND_HAAR else None
     arena = mine.SourceArena(dev)
-    mine.mine(mine.pack_levels(batches[0], ww, wh, dev, arena), feats, trees, ww, wh)  # warm-up
+    warm = mine.pack_levels(batches[0], ww, wh, dev, arena)
+    mine.mine(warm, feats, trees, ww, wh)
+    mine.mine_warp(warm, feats, trees, ww, wh)
     rows = []
     for i, levels in enumerate(batches):
-        before = _build.LAUNCHES["mine"]
+        before = _build.LAUNCHES["mine"], _build.LAUNCHES["mine_warp"]
 
-        def kernel():
+        def kernel(run):
             packed = mine.pack_levels(levels, ww, wh, dev, arena)
-            return mine.mine(packed, feats, trees, ww, wh).cpu()
+            return run(packed, feats, trees, ww, wh).cpu()
 
-        k_ms, got = wall_ms(kernel)
-        n_launch = _build.LAUNCHES["mine"] - before
+        k_ms, got = wall_ms(lambda: kernel(mine.mine))  # with the new sources' upload
+        n_launch = _build.LAUNCHES["mine"] - before[0]
+        w_ms, got_w = wall_ms(lambda: kernel(mine.mine_warp))
+        n_warp = _build.LAUNCHES["mine_warp"] - before[1]
+        k2_ms, _again = wall_ms(lambda: kernel(mine.mine))
         pack_ms, packed = wall_ms(lambda: mine.pack_levels(levels, ww, wh, dev, arena))
         launch_ms = event_ms(lambda: mine.mine(packed, feats, trees, ww, wh))
+        warp_launch_ms = event_ms(lambda: mine.mine_warp(packed, feats, trees, ww, wh))
+        launch_ms_2 = event_ms(lambda: mine.mine(packed, feats, trees, ww, wh))
+        warp_launch_ms_2 = event_ms(lambda: mine.mine_warp(packed, feats, trees, ww, wh))
         ok = mine.mine(packed, feats, trees, ww, wh)
         fetch_ms, _host = wall_ms(lambda: ok.cpu())
         p_ms, want = wall_ms(lambda: mine.mine(
             mine.pack_levels(levels, ww, wh, dev, arena), feats, trees, ww, wh, impl="ref").cpu())
-        if not torch.equal(got, want):
-            raise RuntimeError(f"superbatch {i}: {int((got != want).sum())} kernel masks differ "
-                               f"from the plain version's")
+        for name, mask in (("tile kernel", got), ("replaced design", got_w)):
+            if not torch.equal(mask, want):
+                raise RuntimeError(f"superbatch {i}: {int((mask != want).sum())} masks of the "
+                                   f"{name} differ from the plain version's")
         row = {"levels": len(levels), "windows": packed.n, "accepted": int(got.sum()),
-               "kernel_ms": k_ms, "kernel_launches": n_launch, "launch_ms": launch_ms,
+               "kernel_ms": k_ms, "kernel_launches": n_launch, "warp_ms": w_ms,
+               "kernel_warm_ms": k2_ms,
+               "warp_launches": n_warp, "launch_ms": (launch_ms + launch_ms_2) / 2,
+               "warp_launch_ms": (warp_launch_ms + warp_launch_ms_2) / 2,
                "pack_ms": pack_ms, "fetch_ms": fetch_ms, "plain_ms": p_ms}
         if comp is not None:
             wins = mine.level_windows(packed, ww, wh)
@@ -204,6 +227,39 @@ def time_superbatches(ev, stages, batches, ww: int, wh: int, dev) -> list:
                 mine.pack_levels(levels, ww, wh, dev, arena), feats, trees, ww, wh, impl="ref"))
         rows.append(row)
     return rows
+
+
+def hand_off_sweep(ev, stages, levels, ww: int, wh: int, dev,
+                   counts=(0, 4, 8, 16, 64, 10 ** 9)) -> dict:
+    """The tile kernel's launch ms (CUDA events, mean of 5 after one) on
+    one superbatch at each hand-off count, under stages and under a
+    deeper synthetic cascade (3, 6, 12, 24, 48 stumps, half of each
+    stage's survivors passing) → {stage sizes: {count: ms}}; every mask
+    equal to the first count's."""
+    from cascadeclassifier_tpu_torch.train import mine
+
+    out = {}
+    for st in (stages, synthetic_stages(ev, levels, ww, wh, seed=1, sizes=(3, 6, 12, 24, 48),
+                                        pass_rate=0.5)):
+        used = sorted({int(t.feature_idx[0]) for s in st for t in s.trees})
+        feats = mine.features_of(ev, used)
+        trees = mine.tree_table(st, used, ev.maxCatCount > 0, dev)
+        packed = mine.pack_levels(levels, ww, wh, dev)
+        saved, ms, first = mine.HAND_LIVE, {}, None
+        try:
+            for c in counts:
+                mine.HAND_LIVE = c
+                mask = mine.mine(packed, feats, trees, ww, wh)
+                if first is None:
+                    first = mask
+                elif not torch.equal(mask, first):
+                    raise RuntimeError(f"hand-off count {c}: masks differ")
+                ms[c] = float(np.mean([event_ms(lambda: mine.mine(packed, feats, trees, ww, wh))
+                                       for _ in range(5)]))
+        finally:
+            mine.HAND_LIVE = saved
+        out[tuple(len(s.trees) for s in st)] = ms
+    return out
 
 
 def evaluated_trees(ev, stages, levels, ww: int, wh: int, dev) -> list:
@@ -229,22 +285,45 @@ def report(rows) -> str:
     win = mean("windows")
     lines = [f"{len(rows)} superbatches, {mean('levels'):.1f} levels and {win:.0f} windows a "
              f"superbatch, {mean('accepted'):.0f} accepted"]
-    for name, key, launches in (("kernel", "kernel_ms", rows[0]["kernel_launches"]),
-                                ("plain", "plain_ms", rows[0].get("plain_launches")),
-                                ("composite", "composite_ms", rows[0].get("composite_launches"))):
+    for name, key, launches in (
+            ("kernel", "kernel_ms", rows[0]["kernel_launches"]),
+            ("kernel, the sources already on the card", "kernel_warm_ms",
+             rows[0]["kernel_launches"]),
+            ("replaced design (a warp a window), the sources already on the card", "warp_ms",
+             rows[0]["warp_launches"]),
+            ("plain", "plain_ms", rows[0].get("plain_launches")),
+            ("composite", "composite_ms", rows[0].get("composite_launches"))):
         if key in rows[0]:
             ms = mean(key)
             lines.append(f"{name}: {ms:.3f} ms a superbatch (host, levels to mask), launches a "
                          f"superbatch {launches}, {win / ms * 1e3:.4g} windows/s")
-    lines.append(f"kernel path apart: pack_levels {mean('pack_ms'):.3f} ms (host, to its "
-                 f"uploads' end), the launch {mean('launch_ms'):.4f} ms (CUDA events), the "
-                 f"fetch {mean('fetch_ms'):.4f} ms (host)")
+    lines.append("kernel, levels to mask a superbatch, first pass (with its new sources' "
+                 "upload): " + ", ".join(f"{r['kernel_ms']:.3f}" for r in rows) + " ms")
+    lines.append(f"kernel path apart: pack_levels {mean('pack_ms'):.4f} ms (host, to its "
+                 f"uploads' end), the launch {mean('launch_ms'):.4f} ms (CUDA events; the "
+                 f"replaced design's {mean('warp_launch_ms'):.4f} on the same table, in turns), "
+                 f"the fetch {mean('fetch_ms'):.4f} ms (host)")
     return "\n".join(lines)
 
 
-def synthetic_stages(ev, levels, ww: int, wh: int, seed: int = 0):
-    """3 stages of 2, 2 and 4 stumps over 64 Haar features on the
-    windows of levels (stump_specs, about 40 % of survivors pass each)."""
+def tile_report(ww: int, wh: int) -> list:
+    """A line a kind: the tile kernel's tile, shared bytes and CTAs an SM."""
+    from cascadeclassifier_tpu_torch.train import mine
+
+    lines = []
+    for kind, name in zip(mine.KINDS, ("haar", "haar_tilted", "lbp")):
+        t = mine.tile_info(ww, wh, kind)
+        lines.append(f"tile {name} {ww}x{wh}: {t['tile'][0]}x{t['tile'][1]} windows, "
+                     f"{t['shared_bytes']} shared bytes a CTA (layout {t['layout_bytes']}), "
+                     f"{t['ctas_per_sm']} CTAs an SM")
+    return lines
+
+
+def synthetic_stages(ev, levels, ww: int, wh: int, seed: int = 0, sizes=(2, 2, 4),
+                     pass_rate: float = 0.4):
+    """Stages of sizes stumps (3 stages of 2, 2 and 4) over 64 Haar
+    features on the windows of levels (stump_specs, about pass_rate of
+    survivors pass each)."""
     from cascadeclassifier_tpu_torch.models.model import Stage, WeakTree
     from cascadeclassifier_tpu_torch.train import mine
     from cascadeclassifier_tpu_torch.utils import edges
@@ -253,8 +332,8 @@ def synthetic_stages(ev, levels, ww: int, wh: int, seed: int = 0):
     wins = mine.level_windows(mine.pack_levels(levels, ww, wh, ev.device), ww, wh)
     ids = rng.choice(ev.num_features, 64, replace=False)
     ev.set_samples(wins[:8192])
-    specs = edges.stump_specs(ev.values_for_vars(ids).cpu().numpy(), ids, (2, 2, 4), rng, False,
-                              pass_rate=0.4)
+    specs = edges.stump_specs(ev.values_for_vars(ids).cpu().numpy(), ids, sizes, rng, False,
+                              pass_rate=pass_rate)
     return edges.stages_of(specs, Stage, WeakTree)
 
 
@@ -281,11 +360,17 @@ def main():
         stages = synthetic_stages(ev, batches[0], 24, 24)
         reach = evaluated_trees(ev, stages, batches[0], 24, 24, dev)
         rows = time_superbatches(ev, stages, batches, 24, 24, dev)
+        sweep = hand_off_sweep(ev, stages, batches[0], 24, 24, dev)
     finally:
         shutil.rmtree(folder, ignore_errors=True)
     print(f"{smi}; stages of {[len(s.trees) for s in stages]} stumps, windows reaching each "
           f"stage of superbatch 0: {reach}")
     print(report(rows))
+    for sizes, ms in sweep.items():
+        print(f"hand-off sweep, stages of {list(sizes)} stumps, superbatch 0: " + ", ".join(
+            f"{c} alive {v:.4f} ms" for c, v in ms.items()))
+    for line in tile_report(24, 24):
+        print(line)
     for name, regs, st, ld in _build.kernel_resources("mine.cu"):
         print(f"ptxas {name}: {regs} registers, spills {st} B stored, {ld} B loaded")
 

@@ -168,26 +168,34 @@ budgets):
 
 Right after (s), on its data:
 
-  (z) mine      the dense miner's kernel. Check 1: kernel mine equal to
-                its plain version mine_ref on the card on
-                utils/edges.py's mine_edge_cases (17 cases: nf = 0
+  (z) mine      the dense miner's tile kernel. Check 1: kernel mine equal
+                to its plain version mine_ref on the card on
+                utils/edges.py's mine_edge_cases (22 cases: nf = 0
                 windows, tree thresholds equal to window values, the
                 level's last row and column, a scale-1 lazy level, a
                 source 2 pixels wide, eager levels, a level of one window
                 and an empty one, stage sets of 1 to 301 trees across the
                 scan's blocks of 16 and 256, -0.0 leaves, LBP all-bits
                 subsets and codes, tilted features touching the window's
-                edge), one launch a case. Check 2: 10 superbatches of
-                131 072 windows of (s)'s backgrounds under (s)'s 3 trained
-                stages through mine, mine_ref and the library composite
-                (utils/time_mine.py), each mask of mine equal to
-                mine_ref's: ms a superbatch (levels to host mask), levels,
-                launches and windows a superbatch, windows/s, the
+                edge; the tiles' edges: runs starting and ending inside
+                tiles, a level inside one tile, a one-window last tile,
+                nx = 1, a 13x11 window, tilted features on tile borders),
+                one launch a case; the replaced design (a warp a window,
+                mine_warp) equal too. Check 2: 10 superbatches of 131 072
+                windows of (s)'s backgrounds under (s)'s 3 trained stages
+                through mine, mine_warp, mine_ref and the library
+                composite (utils/time_mine.py), each mask of both kernels
+                equal to mine_ref's: ms a superbatch (levels to host
+                mask; the kernel first with the new sources' upload, then
+                with the sources on the card in turns with mine_warp),
+                levels, launches and windows a superbatch, windows/s, the
                 kernel path apart (pack_levels alone, the launch alone in
-                CUDA events, the fetch), the windows reaching each stage,
-                the bound (each covered level pixel once, integer work at
-                the INT32 rate: covered_pixels, mine_ops, mixed_bound);
-                ptxas's registers and spills of the kernel's three kinds
+                CUDA events for both kernels, the fetch), the windows
+                reaching each stage, the bound (each covered level pixel
+                once, integer work at the INT32 rate: covered_pixels,
+                mine_ops, mixed_bound); ptxas's registers and spills of
+                both kernels' three kinds, the tile kernel's tile, shared
+                bytes a CTA and CTAs an SM for each kind
 
 LBP and the other boost types, on (s)'s data:
 
@@ -986,7 +994,7 @@ def main():
     # (s) training, (t) LBP and the other boost types
     values_extra = {}  # kernel name -> {key: value}: further numbers beside the kernel's
     vec, bg, s_stages = training_phase(dev, timed, work, errs, launches, timed_extra)
-    mine_phase(dev, bg, s_stages, timed, work, errs, values_extra)
+    mine_phase(dev, bg, s_stages, timed, work, errs, timed_extra, values_extra)
     boost_types_phase(dev, vec, bg, timed, work, errs, launches, timed_extra, values_extra)
 
     # ------------------------------------------------------------------
@@ -1527,10 +1535,11 @@ def mixed_bound(nbytes: float, ops: dict):
     return (by, "bytes") if by >= op else (op, "operations")
 
 
-def mine_phase(dev, bg, stages, timed, work, errs, values_extra):
-    """(z), run right after (s) on its data: the dense miner's kernel at
-    its edges and on 10 superbatches of (s)'s backgrounds under (s)'s 3
-    trained stages; see the module docstring."""
+def mine_phase(dev, bg, stages, timed, work, errs, timed_extra, values_extra):
+    """(z), run right after (s) on its data: the dense miner's tile kernel
+    and the design it replaced at their edges and on 10 superbatches of
+    (s)'s backgrounds under (s)'s 3 trained stages; see the module
+    docstring."""
     from cascadeclassifier_tpu_torch import _build
     from cascadeclassifier_tpu_torch.data.negreader import NegReader
     from cascadeclassifier_tpu_torch.ops.features import haar_catalog
@@ -1539,7 +1548,7 @@ def mine_phase(dev, bg, stages, timed, work, errs, values_extra):
     from cascadeclassifier_tpu_torch.utils import time_mine
     from cascadeclassifier_tpu_torch.utils.edges import mine_edge_mismatches
 
-    # -- check 1: the kernel at its edges
+    # -- check 1: the kernels at their edges
     t0 = time.perf_counter()
     before = _build.LAUNCHES.get("mine", 0)
     n_cases, n_win, bad = mine_edge_mismatches(dev)
@@ -1547,13 +1556,18 @@ def mine_phase(dev, bg, stages, timed, work, errs, values_extra):
     check(not bad, f"(z) kernel mine != mine_ref on the card: {bad}")
     check(_build.LAUNCHES["mine"] - before == n_cases, "(z) the edge cases took other than one "
                                                        "launch each")
+    _n, _w, bad_warp = mine_edge_mismatches(dev, mine.mine_warp)
+    torch.cuda.synchronize()
+    check(not bad_warp, f"(z) the replaced design != mine_ref on the card: {bad_warp}")
     print(f"(z) check 1: kernel mine equal to mine_ref on the card on {n_cases} edge cases "
           f"(utils/edges.py: mine_edge_cases; {n_win} windows: nf = 0 windows, thresholds "
           f"equal to values, the last row and column, a scale-1 lazy level, a source 2 pixels "
           f"wide, eager levels, one window, an empty level, stage sets of 1 to 301 trees "
           f"across the blocks of 16 and 256, -0.0 leaves, LBP all-bits subsets and codes, "
-          f"tilted features at the window's edge), one launch a case (tolerance: exact); "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"tilted features at the window's edge; runs starting and ending inside tiles, a "
+          f"level inside one tile, a one-window last tile, nx = 1, a 13x11 window, tilted "
+          f"features on tile borders), one launch a case (tolerance: exact); the replaced "
+          f"design (a warp a window) equal too; {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- check 2: 10 superbatches of 131 072 windows under (s)'s stages
     t1 = time.perf_counter()
@@ -1561,15 +1575,15 @@ def mine_phase(dev, bg, stages, timed, work, errs, values_extra):
     check(len(batches) == 10, f"(z) {len(batches)} superbatches of (s)'s backgrounds")
     ev = HaarTrainEvaluator(haar_catalog(24, 24, "BASIC"), device=dev)
     rows = time_mine.time_superbatches(ev, stages, batches, 24, 24, dev)
-    check(all(r["kernel_launches"] == 1 for r in rows), "(z) a superbatch took other than one "
-                                                        "launch of kernel mine")
+    check(all(r["kernel_launches"] == 1 and r["warp_launches"] == 1 for r in rows),
+          "(z) a superbatch took other than one launch of a kernel")
     reach = time_mine.evaluated_trees(ev, stages, batches[0], 24, 24, dev)
     for line in time_mine.report(rows).splitlines():
         print(f"(z) check 2: {line}", flush=True)
     print(f"(z) check 2: stages of {[len(st.trees) for st in stages]} stumps; windows reaching "
           f"each stage of superbatch 0 {reach}; levels a superbatch "
-          f"{[r['levels'] for r in rows]}; each superbatch's kernel masks equal to mine_ref's "
-          f"(tolerance: exact); {time.perf_counter() - t1:.1f} s", flush=True)
+          f"{[r['levels'] for r in rows]}; each superbatch's masks of both kernels equal to "
+          f"mine_ref's (tolerance: exact); {time.perf_counter() - t1:.1f} s", flush=True)
     used = sorted({int(t.feature_idx[0]) for st in stages for t in st.trees})
     feats = mine.features_of(ev, used)
     trees = mine.tree_table(stages, used, False, dev)
@@ -1579,6 +1593,8 @@ def mine_phase(dev, bg, stages, timed, work, errs, values_extra):
     timed["mine"] = (lambda: mine.mine(packed, feats, trees, 24, 24),
                      lambda: mine.mine(packed, feats, trees, 24, 24, impl="ref"),
                      lambda: time_mine.library_composite(wins, *comp), 2)
+    timed_extra["mine"] = {"replaced_design_ms": lambda: mine.mine_warp(packed, feats, trees,
+                                                                        24, 24)}
     errs["mine"] = 0  # every mask equal (checked above)
     srcs = {(r[mine.EAGER], r[mine.SRC_OFF]): r[mine.SH] * r[mine.SW]
             for r in packed.table.tolist()}
@@ -1593,26 +1609,40 @@ def mine_phase(dev, bg, stages, timed, work, errs, values_extra):
           f"f64 at {F64_OPS_PER_S:.4g}/s; {nbytes} bytes at {HBM_BYTES_PER_S:.4g}/s -> "
           f"{work['mine'][0]:.5f} ms ({work['mine'][1]})", flush=True)
     kinds = {"ILi0E": "haar", "ILi1E": "haar_tilted", "ILi2E": "lbp"}
-    regs = {next((v for k, v in kinds.items() if k in name), name): (r, st, ld)
-            for name, r, st, ld in _build.kernel_resources("mine.cu")}
+    regs = {}
+    for name, r, st, ld in _build.kernel_resources("mine.cu"):
+        kernel = "tile" if "tile_kernel" in name else "warp"
+        regs[f"{kernel}_{next((v for k, v in kinds.items() if k in name), name)}"] = (r, st, ld)
+    tiles = {name: mine.tile_info(24, 24, kind) for kind, name in zip(mine.KINDS, kinds.values())}
     mean = {k: float(np.mean([r[k] for r in rows])) for k in (
-        "levels", "windows", "kernel_ms", "launch_ms", "pack_ms", "fetch_ms", "plain_ms",
-        "composite_ms")}
+        "levels", "windows", "kernel_ms", "kernel_warm_ms", "warp_ms", "launch_ms",
+        "warp_launch_ms", "pack_ms", "fetch_ms", "plain_ms", "composite_ms")}
     values_extra["mine"] = {
         "levels_per_superbatch": mean["levels"], "windows_per_superbatch": mean["windows"],
         "launches_per_superbatch": rows[0]["kernel_launches"],
-        "superbatch_ms": mean["kernel_ms"], "launch_ms_events": mean["launch_ms"],
+        "superbatch_ms": mean["kernel_ms"], "superbatch_ms_sources_on_card":
+            mean["kernel_warm_ms"], "launch_ms_events": mean["launch_ms"],
         "pack_levels_ms": mean["pack_ms"], "fetch_ms": mean["fetch_ms"],
+        "replaced_design_superbatch_ms_sources_on_card": mean["warp_ms"],
+        "replaced_design_launch_ms_events": mean["warp_launch_ms"],
         "level_pixels_covered": list(pixels),
         "plain_superbatch_ms": mean["plain_ms"], "composite_superbatch_ms": mean["composite_ms"],
         "plain_launches_per_superbatch": rows[0]["plain_launches"],
         "composite_launches_per_superbatch": rows[0]["composite_launches"],
-        "windows_per_s": mean["windows"] / mean["kernel_ms"] * 1e3,
+        "windows_per_s": mean["windows"] / mean["kernel_warm_ms"] * 1e3,
         "stage_reach": reach,
         "ptxas": {name: list(v) for name, v in regs.items()},
+        "tiles": {name: {"tile": list(t["tile"]), "shared_bytes": t["shared_bytes"],
+                         "ctas_per_sm": t["ctas_per_sm"]} for name, t in tiles.items()},
     }
     for name, (r, st, ld) in regs.items():
         print(f"(z) ptxas {name}: {r} registers, spill stores {st} B, loads {ld} B", flush=True)
+    for name, t in tiles.items():
+        check(t["shared_bytes"] == t["layout_bytes"], f"(z) {name}: the source's tile layout "
+                                                      f"and train/mine.py's differ")
+        print(f"(z) tile kernel {name} at 24x24: a tile of {t['tile'][0]}x{t['tile'][1]} "
+              f"windows, {t['shared_bytes']} shared bytes a CTA, {t['ctas_per_sm']} CTAs an SM",
+              flush=True)
     print(f"(z) phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
 

@@ -1,6 +1,8 @@
 """The port's mining predictor against the JAX package on the CPU: accept
 masks on sample batches and on lazy and eager mining levels, and the
-trainer's dense negative fill (selection, consumption, reader position)."""
+trainer's dense negative fill (selection, consumption, reader position).
+The reader's levels come as GridRuns: their positions equal the JAX
+reader's arrays byte for byte, and the predictor builds none of them."""
 
 import numpy as np
 import pytest
@@ -18,11 +20,12 @@ from cascadeclassifier_tpu.train.evaluators import (  # noqa: E402
 from cascadeclassifier_tpu.train.predictor import CascadePredictor as JPredictor  # noqa: E402
 from cascadeclassifier_tpu.train.trainer import CascadeTrainer as JCascadeTrainer  # noqa: E402
 from cascadeclassifier_tpu_torch.convert import stages_from_jax  # noqa: E402
-from cascadeclassifier_tpu_torch.data.negreader import NegReader  # noqa: E402
+from cascadeclassifier_tpu_torch.data.negreader import GridRun, NegReader  # noqa: E402
 from cascadeclassifier_tpu_torch.ops.features import haar_catalog  # noqa: E402
 from cascadeclassifier_tpu_torch.train.evaluators import HaarTrainEvaluator  # noqa: E402
 from cascadeclassifier_tpu_torch.train.predictor import CascadePredictor  # noqa: E402
 from cascadeclassifier_tpu_torch.train.trainer import CascadeTrainer  # noqa: E402
+from cascadeclassifier_tpu_torch.utils import train_data  # noqa: E402
 
 from .test_torch_train_stage import _samples  # noqa: E402
 
@@ -119,3 +122,59 @@ def test_fill_negatives_matches_original(tmp_path):
     np.testing.assert_array_equal(out[0][2], out[1][2])
 
 
+def _pgm_backgrounds(tmp_path, sizes):
+    names = []
+    for k, (h, w) in enumerate(sizes):
+        names.append(str(tmp_path / f"bg{k}.pgm"))
+        train_data.write_pgm(names[-1], np.random.default_rng(20 + k).integers(
+            0, 256, (h, w)).astype(np.uint8))
+    bg = tmp_path / "bg.txt"
+    bg.write_text("\n".join(names) + "\n")
+    return str(bg)
+
+
+@pytest.mark.parametrize("side", [12, 24])
+def test_grid_run_positions_equal_original(tmp_path, side):
+    """level_positions' GridRun equals the JAX reader's positions byte for
+    byte (dtype, shape, bytes) over 30 levels, partial first rows and
+    states after skip among them; len, elements and slices agree without
+    or with the array built."""
+    bg = _pgm_backgrounds(tmp_path, ((70, 95), (131, 60), (48, 200)))
+    ours, theirs = NegReader(bg, side, side, lazy=True), JNegReader(bg, side, side, lazy=True)
+    partial = 0
+    for i in range(30):
+        (_img, pos), (_jimg, jpos) = ours.level_positions(), theirs.level_positions()
+        assert isinstance(pos, GridRun) and len(pos) == len(jpos)
+        partial += pos.first % pos.nx != 0
+        for k in (0, len(jpos) // 2, len(jpos) - 1, -1):
+            if len(jpos):
+                assert pos[k, 0] == jpos[k, 0] and pos[k, 1] == jpos[k, 1]
+                assert pos[k, -1] == jpos[k, -1] and isinstance(pos[k, 0], np.int32)
+        assert not pos.materialized
+        arr = np.asarray(pos)
+        assert arr.dtype == jpos.dtype and arr.shape == jpos.shape
+        assert arr.tobytes() == jpos.tobytes()
+        np.testing.assert_array_equal(pos[1::3], jpos[1::3])
+        step = [len(jpos), max(len(jpos) - 3, 0), len(jpos) // 2 + 1, 1][i % 4]
+        assert ours.skip(step) == theirs.skip(step)
+        assert ours.point == theirs.point
+    assert partial >= 5
+
+
+def test_predict_levels_builds_no_positions_without_accepts(tmp_path):
+    """The dense miner on the CPU reads a GridRun's fields only: a cascade
+    that accepts no window leaves every level's positions unbuilt."""
+    bg = _pgm_backgrounds(tmp_path, ((70, 95), (131, 60)))
+    rd = NegReader(bg, 12, 12, lazy=True)
+    levels = []
+    for _ in range(12):
+        img, pos = rd.level_positions()
+        levels.append((img, pos, (rd.last, float(rd.scale))))
+        rd.skip(len(pos))
+    stages = stages_from_jax(_stages())
+    stages[0].threshold = 1e30  # rejects every window
+    ev = HaarTrainEvaluator(haar_catalog(12, 12, "BASIC"), device="cpu")
+    got = CascadePredictor(lambda: ev, stages).predict_levels(levels, 12, 12)
+    assert [len(g) for g in got] == [len(lv[1]) for lv in levels] and sum(map(len, got)) > 100
+    assert not any(g.any() for g in got)
+    assert not any(lv[1].materialized for lv in levels)
