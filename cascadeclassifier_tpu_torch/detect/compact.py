@@ -16,8 +16,10 @@ the tail reads the int32 patches directly:
   f64 from leaves widened before each add, then ssum ≥ threshold; the
   live windows are compacted after every stage.
 
-Extraction syncs with the host once per frame for the survivor count;
-there is no static capacity and so no overflow fallback.
+Extraction syncs with the host once per frame for the survivor count,
+and each tail stage three times (its boolean indexes); there is no
+static capacity and so no overflow fallback. Each tail stage is a span,
+``engine.tail_stage``.
 """
 
 from __future__ import annotations
@@ -25,9 +27,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cascadeclassifier_tpu_torch.utils.profiling import SYNC, count, span
+
 
 def extract_survivors(alive):
     """(out_h, out_w) bool → ascending flat int64 indices of set positions."""
+    count(SYNC)
     return torch.nonzero(alive.reshape(-1)).squeeze(1)
 
 
@@ -69,19 +74,21 @@ def tail(patches, inv_nf, tables: TailTables, exact: bool = False):
     for st in tables.stages:
         if keep.numel() == 0:
             break
-        p = patches.to(torch.int64)
-        c = st["corners"]
-        rect = (p[:, c[0]] - p[:, c[1]] - p[:, c[2]] + p[:, c[3]]) & 0xFFFFFFFF
-        rf = rect.to(torch.float32)  # (n, T, 3), rounds as f32(int32) does
-        w = st["weights"]
-        raw = rf[:, :, 0] * w[:, 0]
-        raw = raw + rf[:, :, 1] * w[:, 1]
-        raw = raw + rf[:, :, 2] * w[:, 2]
-        val = raw * inv_nf[:, None]
-        leaf = torch.where(val < st["thr"], st["left"], st["right"])
-        ssum = leaf[:, 0].to(acc_dt, copy=True)
-        for t in range(1, st["ntrees"]):
-            ssum += leaf[:, t]
-        ok = ssum >= st["threshold"]
-        patches, inv_nf, keep = patches[ok], inv_nf[ok], keep[ok]
+        with span("engine.tail_stage"):
+            p = patches.to(torch.int64)
+            c = st["corners"]
+            rect = (p[:, c[0]] - p[:, c[1]] - p[:, c[2]] + p[:, c[3]]) & 0xFFFFFFFF
+            rf = rect.to(torch.float32)  # (n, T, 3), rounds as f32(int32) does
+            w = st["weights"]
+            raw = rf[:, :, 0] * w[:, 0]
+            raw = raw + rf[:, :, 1] * w[:, 1]
+            raw = raw + rf[:, :, 2] * w[:, 2]
+            val = raw * inv_nf[:, None]
+            leaf = torch.where(val < st["thr"], st["left"], st["right"])
+            ssum = leaf[:, 0].to(acc_dt, copy=True)
+            for t in range(1, st["ntrees"]):
+                ssum += leaf[:, t]
+            ok = ssum >= st["threshold"]
+            count(SYNC, 3)  # each boolean index waits for its count
+            patches, inv_nf, keep = patches[ok], inv_nf[ok], keep[ok]
     return keep

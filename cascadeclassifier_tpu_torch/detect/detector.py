@@ -34,6 +34,7 @@ from cascadeclassifier_tpu_torch.models.model import (
     CascadeModel,
 )
 from cascadeclassifier_tpu_torch.ops.resize import _axis_tab
+from cascadeclassifier_tpu_torch.utils.profiling import SYNC, count, span
 
 THRESHOLD_EPS = np.float32(1e-5)
 
@@ -363,10 +364,13 @@ class TorchDetector:
         img = np.ascontiguousarray(img)
         if img.ndim != 2 or img.dtype != np.uint8:
             raise ValueError("expected a 2-D uint8 frame")
-        h, w = img.shape
-        plan = self.plan_for(w, h, scale_factor, min_size, max_size)
-        frame = torch.from_numpy(img).to(self.device)
-        return plan, self.engine.detect(frame, plan, timings)
+        with span("detect.raw_windows"):
+            h, w = img.shape
+            plan = self.plan_for(w, h, scale_factor, min_size, max_size)
+            with span("detect.upload"):
+                count(SYNC)
+                frame = torch.from_numpy(img).to(self.device)
+            return plan, self.engine.detect(frame, plan, timings)
 
     @staticmethod
     def group(plan, idx, min_neighbors: int) -> np.ndarray:
@@ -375,9 +379,10 @@ class TorchDetector:
         they arrive in the plain stack's order whatever the plan's layout,
         as the JAX package's detector hands them over: the same rects in
         the same order from either plan."""
-        return clip_rects(
-            group_rectangles(_stack_rects(plan, idx), min_neighbors), plan.img_w, plan.img_h
-        )
+        with span("detect.group"):
+            return clip_rects(
+                group_rectangles(_stack_rects(plan, idx), min_neighbors), plan.img_w, plan.img_h
+            )
 
     def detect_multi_scale(self, img: np.ndarray, scale_factor: float = 1.1,
                            min_neighbors: int = 3, min_size=None,
@@ -385,13 +390,14 @@ class TorchDetector:
         """Returns (N, 4) int32 rects (x, y, w, h) in image coords. More
         than max_det raw windows (before grouping) raise RuntimeError, as
         the JAX package's detector does."""
-        plan, idx = self.raw_windows(img, scale_factor, min_size, max_size)
-        if len(idx) > max_det:
-            raise RuntimeError(
-                f"{len(idx)} raw detections exceed max_det={max_det}; "
-                "pass a larger max_det"
-            )
-        return self.group(plan, idx, min_neighbors)
+        with span("detect.frame"):
+            plan, idx = self.raw_windows(img, scale_factor, min_size, max_size)
+            if len(idx) > max_det:
+                raise RuntimeError(
+                    f"{len(idx)} raw detections exceed max_det={max_det}; "
+                    "pass a larger max_det"
+                )
+            return self.group(plan, idx, min_neighbors)
 
     def replica(self, device) -> "TorchDetector":
         """This detector on device: itself, or a copy built once with the

@@ -48,8 +48,6 @@ the port does, tilted or not:
 
 from __future__ import annotations
 
-import time
-
 import torch
 
 from cascadeclassifier_tpu_torch import _build
@@ -67,6 +65,7 @@ from cascadeclassifier_tpu_torch.detect.packed_front import live_block_list, pac
 from cascadeclassifier_tpu_torch.detect.patchify import patchify
 from cascadeclassifier_tpu_torch.detect.stage import stage
 from cascadeclassifier_tpu_torch.detect.tilted import tilted
+from cascadeclassifier_tpu_torch.utils.profiling import SYNC, count, span
 
 
 def front_cutover(cascade, front_trees: int) -> int:
@@ -149,41 +148,41 @@ class Engine(_Pipeline):
         """u8 frame (H, W) on device → ascending flat indices (numpy int64,
         r·out_w + c) of the windows that pass every stage.
 
-        timings: optional dict; when given, the device is synchronized
-        after each phase and the phase's wall milliseconds are added under
-        its name (resize, integral, prep, front or blocks and packed_front,
-        extract, patchify, tail)."""
+        Each phase is a span ``engine.<phase>`` (resize, integral, prep,
+        front or blocks and packed_front, extract, patchify, tail; the
+        fetch of the indices is ``engine.fetch``). timings: optional dict;
+        when given, the device is synchronized after each phase and the
+        phase's wall milliseconds are added under its name."""
         c = self.cascade
-        mark = _PhaseClock(self.device, timings)
-        levels = self._plan_tensors(plan)[0]
-        px = build_pixel_canvas(img, plan, levels, torch.uint8)  # read by integral alone
-        mark("resize")
-        sum2d, sq2d = integral(px, impl=self.impl)
-        mark("integral")
-        inv_nf, alive = self.prep(sum2d, sq2d, plan)
-        mark("prep")
+        with span("engine.resize", timings):
+            levels = self._plan_tensors(plan)[0]
+            px = build_pixel_canvas(img, plan, levels, torch.uint8)  # read by integral alone
+        with span("engine.integral", timings):
+            sum2d, sq2d = integral(px, impl=self.impl)
+        with span("engine.prep", timings):
+            inv_nf, alive = self.prep(sum2d, sq2d, plan)
         if self.packed_front:
-            blk, nblk = live_block_list(alive)
-            mark("blocks")
-            alive = packed_front(sum2d, inv_nf, alive, blk, nblk, c, 1, self.n_dense,
-                                 impl=self.impl, exact=self.exact)
-            mark("packed_front")
+            with span("engine.blocks", timings):
+                blk, nblk = live_block_list(alive)
+            with span("engine.packed_front", timings):
+                alive = packed_front(sum2d, inv_nf, alive, blk, nblk, c, 1, self.n_dense,
+                                     impl=self.impl, exact=self.exact)
         else:
-            alive = front(sum2d, inv_nf, alive, c, 1, self.n_dense, impl=self.impl,
-                          exact=self.exact)
-            mark("front")
-        idx = extract_survivors(alive)
-        n = int(idx.numel())
-        mark("extract")
+            with span("engine.front", timings):
+                alive = front(sum2d, inv_nf, alive, c, 1, self.n_dense, impl=self.impl,
+                              exact=self.exact)
+        with span("engine.extract", timings):
+            idx = extract_survivors(alive)
+            n = int(idx.numel())
         self.last_counts = {"front_survivors": n}
         if self.n_dense < len(c.stages) and n > 0:
-            r = (idx // plan.out_w).to(torch.int32)
-            col = (idx % plan.out_w).to(torch.int32)
-            ps = patchify(sum2d, r, col, n, c.win_w, c.win_h, impl=self.impl)
-            mark("patchify")
-            idx = idx[tail(ps, inv_nf.reshape(-1)[idx], self.tail_tables, self.exact)]
-            mark("tail")
-        return idx.cpu().numpy()
+            with span("engine.patchify", timings):
+                r = (idx // plan.out_w).to(torch.int32)
+                col = (idx % plan.out_w).to(torch.int32)
+                ps = patchify(sum2d, r, col, n, c.win_w, c.win_h, impl=self.impl)
+            with span("engine.tail", timings):
+                idx = idx[tail(ps, inv_nf.reshape(-1)[idx], self.tail_tables, self.exact)]
+        return _fetch(idx)
 
 
 class StageEngine(_Pipeline):
@@ -193,51 +192,41 @@ class StageEngine(_Pipeline):
         """As Engine.detect; phases: resize, integral, tilted, gate, stage,
         walk, extract."""
         c = self.cascade
-        mark = _PhaseClock(self.device, timings)
-        levels, grid, ordinal, _ = self._plan_tensors(plan)
-        px = build_pixel_canvas(img, plan, levels)  # int32: the tilted kernel reads it too
-        mark("resize")
-        sum2d, sq2d = integral(px, impl=self.impl)
-        mark("integral")
+        with span("engine.resize", timings):
+            levels, grid, ordinal, _ = self._plan_tensors(plan)
+            px = build_pixel_canvas(img, plan, levels)  # int32: the tilted kernel reads it too
+        with span("engine.integral", timings):
+            sum2d, sq2d = integral(px, impl=self.impl)
         tilt2d = sum2d  # never read when no tree is tilted
         if c.has_tilted:
             # the JAX package's pad: a boundary error moves inward one
             # column per row, and no block has more than scaled_h + 2 rows
-            pad = int(plan.scaled_h.max()) + 1
-            tilt2d = tilted(px, plan.is_top, pad, impl=self.impl)
-            mark("tilted")
+            with span("engine.tilted", timings):
+                pad = int(plan.scaled_h.max()) + 1
+                tilt2d = tilted(px, plan.is_top, pad, impl=self.impl)
         if c.is_lbp:  # no gate, and no inv_nf to read
             gate, inv_nf = None, None
         else:
-            gate, inv_nf = dense_variance_gate(sum2d, sq2d, c.win_w, c.win_h, plan.out_h,
-                                               plan.out_w)
-            mark("gate")
+            with span("engine.gate", timings):
+                gate, inv_nf = dense_variance_gate(sum2d, sq2d, c.win_w, c.win_h, plan.out_h,
+                                                   plan.out_w)
         # ANDing the static visit grid in only skips windows that the walk
         # masks out below; stage 0's pass mask is still taken everywhere
-        alive, passed0 = stage(sum2d, tilt2d, inv_nf, grid if gate is None else gate & grid, c,
-                               0, len(c.stages), impl=self.impl, exact=self.exact)
-        mark("stage")
-        visited = parity_visited(~passed0 if gate is None else gate & ~passed0, grid, ordinal)
-        mark("walk")
-        idx = extract_survivors(alive & visited)
-        self.last_counts = {"raw_windows": int(idx.numel())}
-        mark("extract")
+        with span("engine.stage", timings):
+            alive, passed0 = stage(sum2d, tilt2d, inv_nf,
+                                   grid if gate is None else gate & grid, c, 0, len(c.stages),
+                                   impl=self.impl, exact=self.exact)
+        with span("engine.walk", timings):
+            visited = parity_visited(~passed0 if gate is None else gate & ~passed0, grid,
+                                     ordinal)
+        with span("engine.extract", timings):
+            idx = extract_survivors(alive & visited)
+            self.last_counts = {"raw_windows": int(idx.numel())}
+        return _fetch(idx)
+
+
+def _fetch(idx):
+    """The survivors' indices to the host (numpy)."""
+    with span("engine.fetch"):
+        count(SYNC)
         return idx.cpu().numpy()
-
-
-class _PhaseClock:
-    """Adds each phase's wall time (ms, device synchronized) to a dict;
-    does nothing when the dict is None."""
-
-    def __init__(self, device, timings):
-        self.device, self.timings = device, timings
-        self.t = time.perf_counter()
-
-    def __call__(self, name):
-        if self.timings is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.timings[name] = self.timings.get(name, 0.0) + (now - self.t) * 1e3
-        self.t = now

@@ -13,10 +13,11 @@ Per pyramid level: the exact INTER_LINEAR_EXACT resize on the device
 them), the predictor in batches (``hog_hist`` and ``hog_eval`` kernels on
 a CUDA device, then the stump or node walk), one fetch per frame; then
 the cvRound mapping with the f64 factor, ``group_rectangles`` and
-``clip_rects``. Every phase of a frame is timed with
-``utils/profiling.py::timed``: ``hog_plan`` (the pyramid plan and the
-frame's upload), ``hog_resize``, ``hog_predict``, ``hog_fetch``,
-``hog_map``, ``hog_group``.
+``clip_rects``. A frame is a span ``detect.frame`` (``utils/profiling.py``),
+its raw windows ``detect.raw_windows``, and each phase a span of its own:
+``hog.plan`` (the pyramid plan and the frame's upload), ``hog.resize``
+and ``hog.predict`` (a level each), ``hog.fetch``, ``hog.map``,
+``hog.group``; none synchronizes.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from cascadeclassifier_tpu_torch.ops.features import HOG_FEAT_SIZE, hog_catalog
 from cascadeclassifier_tpu_torch.ops.resize import build_level
 from cascadeclassifier_tpu_torch.train.evaluators import HOGTrainEvaluator
 from cascadeclassifier_tpu_torch.train.predictor import CascadePredictor
-from cascadeclassifier_tpu_torch.utils.profiling import timed
+from cascadeclassifier_tpu_torch.utils.profiling import SYNC, count, span
 
 
 def stages_with_global_vars(model: CascadeModel) -> list:
@@ -76,12 +77,17 @@ class HOGDetector:
         img = np.ascontiguousarray(img)
         if img.ndim != 2 or img.dtype != np.uint8:
             raise ValueError("expected a 2-D uint8 frame")
+        with span("detect.raw_windows"):
+            return self._raw_windows(img, scale_factor, min_size, max_size)
+
+    def _raw_windows(self, img, scale_factor, min_size, max_size):
         h, w = img.shape
         ww, wh = self.model.width, self.model.height
-        with timed("hog_plan"):
+        with span("hog.plan"):
             plan = build_plan(w, h, ww, wh, scale_factor,
                               tuple(min_size) if min_size else None,
                               tuple(max_size) if max_size else None)
+            count(SYNC)
             frame = torch.from_numpy(img).to(self.device)
         levels, oks, n_windows = [], [], 0
         for s, f in enumerate(plan.scales):
@@ -90,18 +96,19 @@ class HOGDetector:
             ny, nx = (sh + 1 - wh) // step, len(range(0, sw - ww + 1, step))
             if sw < ww or sh < wh or ny <= 0 or nx <= 0:
                 continue
-            with timed("hog_resize"):
+            with span("hog.resize"):
                 scaled = build_level(frame, h, w, sh, sw, 0, 0, sh, sw)
                 grid = scaled.unfold(0, wh, step).unfold(1, ww, step)[:ny, :nx]
                 grid = grid.reshape(-1, wh, ww)
-            with timed("hog_predict"):
+            with span("hog.predict"):
                 for lo in range(0, grid.shape[0], self.batch):
                     oks.append(self._pred.predict_device(grid[lo:lo + self.batch]))
             levels.append((s, ny, nx))
             n_windows += ny * nx
-        with timed("hog_fetch"):
+        with span("hog.fetch"):
+            count(SYNC)
             ok = torch.cat(oks).cpu().numpy() if oks else np.zeros(0, bool)
-        with timed("hog_map"):
+        with span("hog.map"):
             rects, off = [np.zeros((0, 4), np.int64)], 0
             for s, ny, nx in levels:
                 gy, gx = np.nonzero(ok[off:off + ny * nx].reshape(ny, nx))
@@ -119,7 +126,8 @@ class HOGDetector:
                            min_neighbors: int = 3, min_size=None, max_size=None) -> np.ndarray:
         """(N, 4) rects (x, y, w, h): the candidates grouped unclipped, then
         clipped, as detectMultiScale orders them."""
-        rects, _ = self.raw_windows(img, scale_factor, min_size, max_size)
-        h, w = img.shape
-        with timed("hog_group"):
-            return clip_rects(group_rectangles(rects, min_neighbors), w, h)
+        with span("detect.frame"):
+            rects, _ = self.raw_windows(img, scale_factor, min_size, max_size)
+            h, w = img.shape
+            with span("hog.group"):
+                return clip_rects(group_rectangles(rects, min_neighbors), w, h)

@@ -37,6 +37,7 @@ import torch.distributed as dist
 
 from cascadeclassifier_tpu_torch.train.evaluators import f32_matmul
 from cascadeclassifier_tpu_torch.train.split import split_scan_gather, tree_sum
+from cascadeclassifier_tpu_torch.utils.profiling import SYNC, count
 
 
 @dataclasses.dataclass
@@ -179,12 +180,14 @@ def gather_records(mesh: FeatureMesh | None, records: list) -> np.ndarray:
         for k, r in enumerate(records):
             by_device.setdefault(r.device, []).append(k)
         out = [None] * len(records)
+        count(SYNC, len(by_device))
         for ks in by_device.values():
             host = torch.stack([records[k] for k in ks]).cpu().numpy()
             for j, k in enumerate(ks):
                 out[k] = host[j]
         return np.stack(out)
     (local,) = records
+    count(SYNC)
     if dist.get_backend(mesh.group) != "nccl":
         local = local.cpu()
     parts = [torch.empty_like(local) for _ in range(mesh.size)]

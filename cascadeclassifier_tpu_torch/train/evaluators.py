@@ -47,8 +47,17 @@ from cascadeclassifier_tpu_torch.ops.integral import (
     integral_tilted,
     window_norm_factor,
 )
+from cascadeclassifier_tpu_torch.utils.profiling import SYNC, count
 
 _SIGN = (1.0, -1.0, -1.0, 1.0)
+
+
+def _upload(a, device, dtype=None):
+    """a as a tensor on device: a host array's blocking upload is a sync
+    site; a tensor (the callers' are on the device already) is not."""
+    if not torch.is_tensor(a):
+        count(SYNC)
+    return torch.as_tensor(a, dtype=dtype, device=device)
 
 
 def f32_matmul(a, b):
@@ -69,6 +78,7 @@ def corner_matrix(offsets, weights, p: int):
     integers: exact)."""
     b, r = offsets.shape[:2]
     dev = offsets.device
+    count(SYNC)
     sign = torch.tensor(_SIGN, dtype=torch.float32, device=dev)
     rows = torch.arange(b, device=dev).repeat_interleave(4 * r)
     cols = offsets.reshape(-1).long()
@@ -105,6 +115,7 @@ class HaarTrainEvaluator:
         self.win_w, self.win_h = catalog.win_w, catalog.win_h
         self.p = (catalog.win_w + 1) * (catalog.win_h + 1)
         self.need_tilted = bool(catalog.tilted.any())
+        count(SYNC, 3)
         self._offsets = torch.from_numpy(catalog.corner_offsets()).to(self.device)
         self._weights = torch.from_numpy(catalog.weights).to(self.device)
         self._tilted = torch.from_numpy(catalog.tilted).to(self.device)
@@ -113,7 +124,7 @@ class HaarTrainEvaluator:
 
     def set_samples(self, samples):
         """samples: (N, h, w) uint8 → caches integral rows + norm factors."""
-        x = torch.as_tensor(samples).to(self.device)
+        x = _upload(samples, self.device)
         self.sum_rows, self.nf = haar_rows(x)
         if self.need_tilted:
             t = integral_tilted(x)
@@ -130,6 +141,7 @@ class HaarTrainEvaluator:
     def corner_matrices(self, sel):
         """(upright (B, P), tilted (B, P) or None) for the features sel."""
         off, w, til = self._offsets[sel], self._weights[sel], self._tilted[sel]
+        count(SYNC)
         if not bool(til.any()):
             return corner_matrix(off, w, self.p), None
         up = ~til
@@ -142,6 +154,7 @@ class HaarTrainEvaluator:
         integral (the tilted one for a tilted feature), weights (B, 3)
         int32 (0: no rect), tilted flags (B,) int32."""
         w = self._weights[sel]
+        count(SYNC)
         if not torch.equal(w, w.round()):
             raise ValueError("Haar weights are not integers: the miner sums rects in integers")
         return (self._offsets[sel].to(torch.int32).contiguous(), w.to(torch.int32).contiguous(),
@@ -161,7 +174,7 @@ class HaarTrainEvaluator:
 
     def values_for_vars(self, var_ids):
         """(K, N) responses of an explicit list of feature indices."""
-        ids = torch.as_tensor(np.asarray(var_ids, np.int64), device=self.device)
+        ids = _upload(np.asarray(var_ids, np.int64), self.device)
         return self._eval_features(ids)
 
 
@@ -185,6 +198,7 @@ class LBPTrainEvaluator:
         self.device = torch.device(device)
         self.win_w, self.win_h = catalog.win_w, catalog.win_h
         self.p = (catalog.win_w + 1) * (catalog.win_h + 1)
+        count(SYNC, 2)
         self._cell_rects = torch.from_numpy(catalog.cell_rects()).to(self.device)
         self._cell_points = torch.from_numpy(catalog.cell_offsets()).to(self.device)
         self.num_features = self.var_count = len(catalog)
@@ -192,7 +206,7 @@ class LBPTrainEvaluator:
 
     def set_samples(self, samples):
         """samples: (N, h, w) uint8 → caches the integral rows."""
-        x = torch.as_tensor(samples).to(self.device)
+        x = _upload(samples, self.device)
         self.sum_rows = lbp_rows(x)
         self.n = int(x.shape[0])
 
@@ -226,7 +240,7 @@ class LBPTrainEvaluator:
 
     def values_for_vars(self, var_ids):
         """(K, N) int32 codes of an explicit list of feature indices."""
-        ids = torch.as_tensor(np.asarray(var_ids, np.int64), device=self.device)
+        ids = _upload(np.asarray(var_ids, np.int64), self.device)
         return self.codes(self.cell_matrix(ids), self.sum_rows)
 
 
@@ -254,13 +268,14 @@ class HOGTrainEvaluator:
         cells = catalog.cell_corner_offsets()
         if not is_corner_grid(cells):
             raise ValueError("HOG catalog: a feature's cells are not a 2x2 grid")
+        count(SYNC)
         self._cells = torch.from_numpy(cells).to(self.device)
         self.impl = impl
         self.n = 0
 
     def set_samples(self, samples):
         """samples: (N, h, w) uint8 → caches the integral histograms."""
-        x = torch.as_tensor(samples).to(self.device)
+        x = _upload(samples, self.device)
         hist, norm = hog_integral_histogram(x, impl=self.impl)
         n = int(x.shape[0])
         self.hist_rows = hist.reshape(n, 9, -1)
@@ -281,7 +296,7 @@ class HOGTrainEvaluator:
 
     def values_for_vars(self, var_ids):
         """(K, N) responses of an explicit list of variable indices."""
-        ids = torch.as_tensor(var_ids, dtype=torch.int64, device=self.device)
+        ids = _upload(var_ids, self.device, torch.int64)
         return hog_responses(self.hist_rows, self.norm_rows, self._cells, ids, impl=self.impl)
 
 

@@ -66,6 +66,7 @@ from cascadeclassifier_tpu_torch.train.evaluators import (
     haar_rows,
     lbp_rows,
 )
+from cascadeclassifier_tpu_torch.utils.profiling import SYNC, count
 
 LEVEL_COLS = ("src_off", "eager", "sh", "sw", "dh", "dw", "oy", "ox", "nx", "w0", "count", "out",
               "tile_haar", "tile_haar_tilted", "tile_lbp")
@@ -127,6 +128,7 @@ class SourceArena:
                                     dtype=torch.uint8, device=self.device)
                 grown[:self.used] = self.buf[:self.used]
                 self.buf = grown
+            count(SYNC, len(new))
             for k, v in new.items():
                 self.buf[self.used:self.used + v.size].copy_(
                     torch.from_numpy(np.ascontiguousarray(v, np.uint8).reshape(-1)))
@@ -339,6 +341,7 @@ def pack_levels(levels, ww: int, wh: int, device, arena: SourceArena | None = No
             first_tile.append(done[shape][0])
             tiles[k] = done[shape][1] if shape else None
         table = np.column_stack([hd, np.cumsum(cnt) - cnt, *first_tile])
+    count(SYNC, 2 if eager_parts else 1)
     eager = (torch.from_numpy(np.concatenate(eager_parts)).to(device) if eager_parts
              else torch.empty(0, dtype=torch.uint8, device=device))
     return Levels(torch.from_numpy(np.ascontiguousarray(table, np.int64)).to(device), arena.buf,
@@ -353,9 +356,11 @@ def exact_bound(feats: Features, ww: int, wh: int) -> int:
     255·wh·ww."""
     stride = ww + 1
     if feats.points is not None:
+        count(SYNC, 2)
         pts = feats.points.long()[:, torch.from_numpy(_CELL_POINTS).to(feats.points.device)]
         reach = (pts // stride) * (pts % stride) * PIXEL_MAX
         return int(reach.sum(dim=2).max()) if reach.numel() else 0
+    count(SYNC)
     off = feats.offsets.long()
     reach = (off // stride) * (off % stride) * PIXEL_MAX
     reach = torch.where(feats.tilted.bool()[:, None, None], PIXEL_MAX * wh * ww, reach)
@@ -378,10 +383,12 @@ def check_exact(feats: Features, ww: int, wh: int):
 def features_of(ev, used) -> Features:
     """The records of the used features (global indices) from a Haar or
     LBP training evaluator."""
+    count(SYNC)
     sel = torch.as_tensor(np.asarray(used, np.int64), device=ev.device)
     if ev.maxCatCount > 0:
         return Features(points=ev.kernel_records(sel))
     off, w, til = ev.kernel_records(sel)
+    count(SYNC)
     return Features(offsets=off, weights=w, tilted=til, has_tilted=bool(til.any()))
 
 
@@ -408,6 +415,7 @@ def tree_table(stages, used, categorical: bool, device) -> Trees:
         sthr.append(float(stage.threshold))
 
     def t(a, dtype, shape=(-1,)):
+        count(SYNC)
         return torch.as_tensor(np.asarray(a, dtype).reshape(shape), device=device)
 
     return Trees(t(ti, np.int32), t(tt, np.float32), t(tl, np.float32), t(tr, np.float32),
@@ -434,6 +442,7 @@ def level_windows(levels: Levels, ww: int, wh: int):
     source) or cut (eager) down to its last window's row."""
     sy, sx = wh // 2, ww // 2
     parts = []
+    count(SYNC)
     for r in levels.table.tolist():
         nx, w0, cnt = r[NX], r[W0], r[COUNT]
         ny = (w0 + cnt - 1) // nx + 1

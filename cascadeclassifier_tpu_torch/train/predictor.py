@@ -38,7 +38,7 @@ import torch
 
 from cascadeclassifier_tpu_torch.train import mine
 from cascadeclassifier_tpu_torch.train.split import scan_cumsum
-from cascadeclassifier_tpu_torch.utils.profiling import timed
+from cascadeclassifier_tpu_torch.utils.profiling import SYNC, count, span
 
 CV_THRESHOLD_EPS = 1e-5
 
@@ -153,6 +153,7 @@ class CascadePredictor:
             sthr.append(float(stage.threshold))
 
         def t(a, dtype):
+            count(SYNC)
             return torch.as_tensor(np.asarray(a, dtype), device=device)
 
         return (t(fpos, np.int64), t(thr, np.float32), t(sub, np.int32) if categorical else None,
@@ -195,7 +196,9 @@ class CascadePredictor:
     def predict_batch(self, samples) -> np.ndarray:
         """samples: (m, h, w) uint8 → (m,) bool, True when every stage
         accepts (1 == the reference's predict)."""
-        return self.predict_device(samples).cpu().numpy()
+        ok = self.predict_device(samples)
+        count(SYNC)
+        return ok.cpu().numpy()
 
     def predict_levels(self, levels, ww: int, wh: int):
         """Mining predict over whole (image, scale) levels.
@@ -212,10 +215,11 @@ class CascadePredictor:
         used, _walk, trees = self._walk_of(ev)
         if self._feats_key != self._walk_key:
             self._feats, self._feats_key = mine.features_of(ev, used), self._walk_key
-        with timed("mine_values"):
+        with span("mine.values"):
             packed = self._pack(levels, ww, wh, ev.device)
             ok = mine.mine(packed, self._feats, trees, ww, wh)
-        with timed("mine_fetch"):
+        with span("mine.fetch"):
+            count(SYNC)
             ok = ok.cpu().numpy().astype(bool)
         return _split(ok, packed.counts)
 
@@ -231,12 +235,13 @@ class CascadePredictor:
         evaluator's values of the used features, the walk."""
         used, walk, _trees = self._walk_of(ev)
         oks = []
-        with timed("mine_values"):
+        with span("mine.values"):
             packed = self._pack(levels, ww, wh, ev.device)
             wins = mine.level_windows(packed, ww, wh)
             for c0 in range(0, wins.shape[0], mine.CHUNK_WINDOWS):
                 oks.append(self._predict_windows(ev, used, walk,
                                                  wins[c0:c0 + mine.CHUNK_WINDOWS]))
-        with timed("mine_fetch"):
+        with span("mine.fetch"):
+            count(SYNC)
             ok = torch.cat(oks).cpu().numpy() if oks else np.zeros(0, bool)
         return _split(ok, packed.counts)

@@ -56,7 +56,7 @@ from cascadeclassifier_tpu_torch.ops.features import HOG_FEAT_SIZE, haar_mode_id
 from cascadeclassifier_tpu_torch.train.boost import BoostParams, StageTrainer, check_mesh
 from cascadeclassifier_tpu_torch.train.evaluators import make_evaluator
 from cascadeclassifier_tpu_torch.train.predictor import CascadePredictor
-from cascadeclassifier_tpu_torch.utils.profiling import timed
+from cascadeclassifier_tpu_torch.utils.profiling import span, timed
 
 
 class CascadeTrainer:
@@ -163,7 +163,7 @@ class CascadeTrainer:
         while len(kept) < count and not stop and not exhausted:
             snaps, lvls = [], []
             total = 0
-            with timed("mine_gather"):
+            with span("mine.gather"):
                 while total < self.mining_batch:
                     snaps.append(neg.state())
                     lvl = neg.level_positions()
@@ -180,7 +180,7 @@ class CascadeTrainer:
                         break
             if not lvls:
                 break
-            with timed("mine_predict"):
+            with span("mine.predict"):
                 oks = pred.predict_levels(lvls, ww, wh)
             fini = False
             li_stop = j_stop = 0
@@ -336,142 +336,146 @@ class CascadeTrainer:
         base_format_save=False,
         verbose=True,
     ):
-        t_start = time.time()
-        if self.writes:
-            os.makedirs(data_dir, exist_ok=True)
-        resumed = self.load(data_dir)
-        if resumed and verbose:
-            print("Training parameters are pre-loaded from the parameter "
-                  "file in data folder!")
-        pos = PosReader(vec_path, self.win_w, self.win_h)
-        # lazy: levels materialize on the host only for accepted-window
-        # crops; dense mining builds them on the device from the source
-        neg = NegReader(bg_path, self.win_w, self.win_h, lazy=True)
-        start_stage = len(self.stages)
+        with span("train.job"):
+            t_start = time.time()
+            with span("train.open"):
+                if self.writes:
+                    os.makedirs(data_dir, exist_ok=True)
+                resumed = self.load(data_dir)
+                if resumed and verbose:
+                    print("Training parameters are pre-loaded from the parameter "
+                          "file in data folder!")
+                pos = PosReader(vec_path, self.win_w, self.win_h)
+                # lazy: levels materialize on the host only for accepted-window
+                # crops; dense mining builds them on the device from the source
+                neg = NegReader(bg_path, self.win_w, self.win_h, lazy=True)
+            start_stage = len(self.stages)
 
-        p = self.boost
-        required_leaf_fa = (
-            p.max_false_alarm ** num_stages
-        ) / p.max_depth
+            p = self.boost
+            required_leaf_fa = (
+                p.max_false_alarm ** num_stages
+            ) / p.max_depth
 
-        for si in range(start_stage, num_stages):
-            if verbose:
-                print(f"\n===== TRAINING {si}-stage =====")
-                print("<BEGIN")
+            for si in range(start_stage, num_stages):
+                with span("train.stage"):
+                    if verbose:
+                        print(f"\n===== TRAINING {si}-stage =====")
+                        print("<BEGIN")
 
-            pos.restart()
-            pos_consumed = [0]
-            with timed("fill_positives"):
-                pos_samples = self._fill_positives(pos, num_pos, pos_consumed)
-            if len(pos_samples) == 0:
-                print("Train dataset for temp stage can not be filled. "
-                      "Branch training terminated.")
-                break
-            if verbose:
-                print(
-                    f"POS count : consumed   {len(pos_samples)} :"
-                    f" {pos_consumed[0]}"
-                )
+                    pos.restart()
+                    pos_consumed = [0]
+                    with timed("train.fill_positives"):
+                        pos_samples = self._fill_positives(pos, num_pos, pos_consumed)
+                    if len(pos_samples) == 0:
+                        print("Train dataset for temp stage can not be filled. "
+                              "Branch training terminated.")
+                        break
+                    if verbose:
+                        print(
+                            f"POS count : consumed   {len(pos_samples)} :"
+                            f" {pos_consumed[0]}"
+                        )
 
-            pro_num_neg = int(
-                np.rint(num_neg * len(pos_samples) / num_pos)
-            )
-            neg_consumed = [0]
-            with timed("fill_negatives"):
-                neg_samples = self._fill_negatives(
-                    neg, pro_num_neg, required_leaf_fa, neg_consumed
-                )
-            acceptance = (
-                len(neg_samples) / neg_consumed[0] if neg_consumed[0] else 0.0
-            )
-            if verbose:
-                print(
-                    f"NEG count : acceptanceRatio    {len(neg_samples)} :"
-                    f" {acceptance:g}"
-                )
-            if len(neg_samples) == 0 and not (
-                neg_consumed[0] > 0
-                and 1.0 / neg_consumed[0] <= required_leaf_fa
-            ):
-                print("Train dataset for temp stage can not be filled. "
-                      "Branch training terminated.")
-                break
-            if acceptance <= required_leaf_fa:
-                print("Required leaf false alarm rate achieved. "
-                      "Branch training terminated.")
-                break
-            if acceptance_ratio_break >= 0 and acceptance <= acceptance_ratio_break:
-                print("The required acceptanceRatio for the model has been "
-                      "reached to avoid overfitting of trainingdata. "
-                      "Branch training terminated.")
-                break
-
-            samples = np.concatenate([pos_samples, neg_samples], axis=0)
-            labels = np.concatenate(
-                [np.ones(len(pos_samples), np.int32),
-                 np.zeros(len(neg_samples), np.int32)]
-            )
-            # pad the sample axis to a bucketed size so per-stage sample
-            # counts reuse the same compiled programs
-            n = len(samples)
-            n_pad = max(256, -(-n // 256) * 256)
-            valid = np.zeros(n_pad, bool)
-            valid[:n] = True
-            if n_pad != n:
-                samples = np.concatenate(
-                    [samples,
-                     np.zeros((n_pad - n, self.win_h, self.win_w), np.uint8)]
-                )
-                labels = np.concatenate(
-                    [labels, np.zeros(n_pad - n, np.int32)]
-                )
-            with timed("set_samples"):
-                self.evaluator.set_samples(samples)
-            with timed("train_stage"):
-                stage, _ = StageTrainer(
-                    self.evaluator, p,
-                    val_buf_mb=self.precalc_val_mb,
-                    idx_buf_mb=self.precalc_idx_mb,
-                    mesh=self.mesh,
-                ).train(labels, valid=valid, verbose=verbose)
-            if verbose:
-                print("END>")
-            if stage is None:
-                break
-            self.stages.append(stage)
-
-            if self.writes:
-                if si == 0:
-                    write_params_xml(
-                        self._to_model(compact=False),
-                        os.path.join(data_dir, "params.xml"),
-                        node_name="params",
+                    pro_num_neg = int(
+                        np.rint(num_neg * len(pos_samples) / num_pos)
                     )
-                write_stage_xml(
-                    stage,
-                    self.max_cat_count > 0,
-                    os.path.join(data_dir, f"stage{si}.xml"),
-                    node_name=f"stage{si}",
-                )
-            if verbose:
-                dt = int(time.time() - t_start)
-                print(
-                    f"Training until now has taken {dt // 86400} days "
-                    f"{dt // 3600 % 24} hours {dt // 60 % 60} minutes "
-                    f"{dt % 60} seconds."
-                )
+                    neg_consumed = [0]
+                    with timed("train.fill_negatives"):
+                        neg_samples = self._fill_negatives(
+                            neg, pro_num_neg, required_leaf_fa, neg_consumed
+                        )
+                    acceptance = (
+                        len(neg_samples) / neg_consumed[0] if neg_consumed[0] else 0.0
+                    )
+                    if verbose:
+                        print(
+                            f"NEG count : acceptanceRatio    {len(neg_samples)} :"
+                            f" {acceptance:g}"
+                        )
+                    if len(neg_samples) == 0 and not (
+                        neg_consumed[0] > 0
+                        and 1.0 / neg_consumed[0] <= required_leaf_fa
+                    ):
+                        print("Train dataset for temp stage can not be filled. "
+                              "Branch training terminated.")
+                        break
+                    if acceptance <= required_leaf_fa:
+                        print("Required leaf false alarm rate achieved. "
+                              "Branch training terminated.")
+                        break
+                    if acceptance_ratio_break >= 0 and acceptance <= acceptance_ratio_break:
+                        print("The required acceptanceRatio for the model has been "
+                              "reached to avoid overfitting of trainingdata. "
+                              "Branch training terminated.")
+                        break
 
-        if not self.stages:
-            print("Cascade classifier can't be trained. "
-                  "Check the used training parameters.")
-            return None
+                    samples = np.concatenate([pos_samples, neg_samples], axis=0)
+                    labels = np.concatenate(
+                        [np.ones(len(pos_samples), np.int32),
+                         np.zeros(len(neg_samples), np.int32)]
+                    )
+                    # pad the sample axis to a bucketed size so per-stage sample
+                    # counts reuse the same compiled programs
+                    n = len(samples)
+                    n_pad = max(256, -(-n // 256) * 256)
+                    valid = np.zeros(n_pad, bool)
+                    valid[:n] = True
+                    if n_pad != n:
+                        samples = np.concatenate(
+                            [samples,
+                             np.zeros((n_pad - n, self.win_h, self.win_w), np.uint8)]
+                        )
+                        labels = np.concatenate(
+                            [labels, np.zeros(n_pad - n, np.int32)]
+                        )
+                    with timed("train.set_samples"):
+                        self.evaluator.set_samples(samples)
+                    with timed("train.train_stage"):
+                        stage, _ = StageTrainer(
+                            self.evaluator, p,
+                            val_buf_mb=self.precalc_val_mb,
+                            idx_buf_mb=self.precalc_idx_mb,
+                            mesh=self.mesh,
+                        ).train(labels, valid=valid, verbose=verbose)
+                    if verbose:
+                        print("END>")
+                    if stage is None:
+                        break
+                    self.stages.append(stage)
 
-        model = self._to_model(compact=True)
-        if not self.writes:
-            return model
-        write_cascade_xml(model, os.path.join(data_dir, "cascade.xml"))
-        if base_format_save:
-            write_legacy_haar_xml(
-                model, os.path.join(data_dir, "cascade_oldformat.xml")
-            )
-        return model
+                    if self.writes:
+                        if si == 0:
+                            write_params_xml(
+                                self._to_model(compact=False),
+                                os.path.join(data_dir, "params.xml"),
+                                node_name="params",
+                            )
+                        write_stage_xml(
+                            stage,
+                            self.max_cat_count > 0,
+                            os.path.join(data_dir, f"stage{si}.xml"),
+                            node_name=f"stage{si}",
+                        )
+                    if verbose:
+                        dt = int(time.time() - t_start)
+                        print(
+                            f"Training until now has taken {dt // 86400} days "
+                            f"{dt // 3600 % 24} hours {dt // 60 % 60} minutes "
+                            f"{dt % 60} seconds."
+                        )
+
+            if not self.stages:
+                print("Cascade classifier can't be trained. "
+                      "Check the used training parameters.")
+                return None
+
+            with span("train.save"):
+                model = self._to_model(compact=True)
+                if not self.writes:
+                    return model
+                write_cascade_xml(model, os.path.join(data_dir, "cascade.xml"))
+                if base_format_save:
+                    write_legacy_haar_xml(
+                        model, os.path.join(data_dir, "cascade_oldformat.xml")
+                    )
+                return model

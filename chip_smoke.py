@@ -290,8 +290,8 @@ Multi-device training and the tools, on (s)'s data (parallel/, tools/):
                 of data/smoke_golden_1080p.json; a HOG cascade goes to
                 HOGDetector through hog_hist and hog_eval. Check 3:
                 utils/profiling.py's trace() around one frame writes a
-                Chrome trace holding its annotate() range and the front's
-                tile_kernel
+                Chrome trace holding the frame's detect.frame span and the
+                front's tile_kernel
 
 The host library (csrc/cctpu_io.cpp: grouping, the .vec codec, the
 negative-window miner; C++ and its standard library, built with g++ in
@@ -2299,15 +2299,12 @@ def hog_phase(dev, vec, bg, timed, work, errs, launches, timed_extra, values_ext
     frame = synth_frame(0)
     det = HOGDetector(model, device=dev)
     det.detect_multi_scale(frame, 1.1, 3)  # warm-up
-    reset_timings()
     _build.LAUNCHES.clear()
     t5 = time.perf_counter()
     rects = det.detect_multi_scale(frame, 1.1, 3)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t5) * 1e3
     det_launches = dict(_build.LAUNCHES)
-    phases = {k: sum(v) * 1e3 for k, v in timings().items()}
-    phases["outside the scopes"] = ms - sum(phases.values())
     raw, n_windows = det.raw_windows(frame, 1.1)
     want_raw, want_windows = HOGDetector(model, device=dev, impl="ref").raw_windows(frame, 1.1)
     check(n_windows == want_windows and np.array_equal(raw, want_raw),
@@ -2323,8 +2320,7 @@ def hog_phase(dev, vec, bg, timed, work, errs, launches, timed_extra, values_ext
     print(f"(v) check 3: HOG detection on synth_frame(0) at 1080p, sf 1.1, minNeighbors 3: "
           f"{n_windows} windows, {len(raw)} raw candidates, {len(rects)} rects, the raw "
           f"candidates and the rects equal to the plain-version path's; {ms:.1f} ms a frame "
-          f"({gpu_info()}), by phase (device synchronized at each scope's ends): " + ", ".join(
-              f"{k} {v:.1f}" for k, v in sorted(phases.items())) + f" ms; hog_hist launched "
+          f"({gpu_info()}); hog_hist launched "
           f"{det_launches.get('hog_hist', 0)} times, hog_eval {det_launches.get('hog_eval', 0)}"
           f"; {time.perf_counter() - t4:.1f} s", flush=True)
 
@@ -2571,7 +2567,7 @@ def tools_phase(dev, vec, bg, frontal, frame0, golden, values_extra):
     from cascadeclassifier_tpu_torch.ops.features import hog_catalog
     from cascadeclassifier_tpu_torch.tools import detect_cli, traincascade_cli
     from cascadeclassifier_tpu_torch.utils import train_data
-    from cascadeclassifier_tpu_torch.utils.profiling import annotate, trace
+    from cascadeclassifier_tpu_torch.utils.profiling import trace
 
     def stdout_of(fn, argv):
         buf = io.StringIO()
@@ -2645,8 +2641,7 @@ def tools_phase(dev, vec, bg, frontal, frame0, golden, values_extra):
     det.detect_multi_scale(frame0, 1.1, 3)  # warm-up
     log = os.path.join(TRAIN_DIR, "x_trace")
     with trace(log):
-        with annotate("smoke_detect_frame"):
-            det.detect_multi_scale(frame0, 1.1, 3)
+        det.detect_multi_scale(frame0, 1.1, 3)
         torch.cuda.synchronize()
     files = os.listdir(log)
     check(len(files) == 1, f"(x) check 3: trace files {files}")
@@ -2654,13 +2649,13 @@ def tools_phase(dev, vec, bg, frontal, frame0, golden, values_extra):
         events = json.load(f)["traceEvents"]
     names = {e.get("name", "") for e in events}
     kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
-    check("smoke_detect_frame" in names, "(x) check 3: the annotate range is not in the trace")
+    check("detect.frame" in names, "(x) check 3: the frame's span is not in the trace")
     check(any("tile_kernel" in k for k in kernels),
           "(x) check 3: the front's kernel (tile_kernel) is not in the trace")
     device_ms = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel") / 1e3
     print(f"(x) check 3: trace() around one frame wrote {files[0]} "
           f"({os.path.getsize(os.path.join(log, files[0]))} bytes, {len(events)} events, "
-          f"{len(kernels)} kernel names, the front's tile_kernel and the annotate range "
+          f"{len(kernels)} kernel names, the front's tile_kernel and the detect.frame span "
           f"among them; {device_ms:.2f} ms of device time)", flush=True)
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     print(f"(x) phase took {time.perf_counter() - t0:.1f} s", flush=True)

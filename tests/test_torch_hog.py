@@ -46,6 +46,7 @@ from cascadeclassifier_tpu_torch.train.evaluators import (  # noqa: E402
     make_evaluator,
 )
 from cascadeclassifier_tpu_torch.train.trainer import CascadeTrainer  # noqa: E402
+from cascadeclassifier_tpu_torch.utils import profiling  # noqa: E402
 from cascadeclassifier_tpu_torch.utils.edges import (  # noqa: E402
     hog_edge_mismatches,
     hog_id_cases,
@@ -509,6 +510,34 @@ def test_hog_detector_matches_original(hog_toy, min_neighbors):
     np.testing.assert_array_equal(np.asarray(got, np.int64).reshape(-1, 4),
                                   np.asarray(want, np.int64).reshape(-1, 4))
     assert _build.LAUNCHES["hog_hist"] == _build.LAUNCHES["hog_eval"] == 0  # plain on the CPU
+
+
+def test_hog_detector_spans(hog_toy, monkeypatch):
+    """The HOG detector's phase scopes are spans: with tracing off they
+    never synchronize the card; traced, a frame is one detect.frame root
+    over its hog.* phases, a resize and a predict a level, counting the
+    upload and the fetch as its syncs."""
+    d, _, scene = hog_toy
+    det = make_detector(read_cascade_xml(os.path.join(d, "port", "cascade.xml")), device="cpu")
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: calls.append(1))
+    want = det.detect_multi_scale(scene, 1.2, 1)
+    assert calls == []
+    monkeypatch.undo()
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = det.detect_multi_scale(scene, 1.2, 1)
+    spans = profiling.spans()
+    profiling.reset()
+    np.testing.assert_array_equal(got, want)
+    root = spans[0]
+    assert root.name == "detect.frame" and all(x.root == root.id for x in spans)
+    names = [x.name for x in spans]
+    assert names.count("hog.resize") == names.count("hog.predict") >= 2
+    assert {"detect.raw_windows", "hog.plan", "hog.fetch", "hog.map", "hog.group"} <= set(names)
+    assert root.counts["sync"] >= 2
 
 
 @pytest.mark.parametrize("thr", [1, 3])

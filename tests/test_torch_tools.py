@@ -270,18 +270,21 @@ def test_detect_cli_matches_original(tmp_path, fast):
 
 
 def test_trace_and_annotate_write_a_trace(tmp_path):
-    """trace() writes a Chrome trace holding the annotate() range and the
+    """trace() writes a Chrome trace holding a span() range and the
     operations inside it; summary() lists every timed scope."""
     log = str(tmp_path / "trace")
+    profiling.reset()
     with profiling.trace(log) as prof:
-        with profiling.annotate("smoke_scope"):
+        with profiling.span("smoke.scope"):
             torch.ones(64, 64).matmul(torch.ones(64, 64)).sum()
     files = os.listdir(log)
     assert len(files) == 1 and files[0].endswith(".pt.trace.json")
     with open(os.path.join(log, files[0])) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "smoke_scope" in names and any("mm" in str(n) for n in names)
-    assert any(e.key == "smoke_scope" for e in prof.key_averages())
+    assert "smoke.scope" in names and any("mm" in str(n) for n in names)
+    assert any(e.key == "smoke.scope" for e in prof.key_averages())
+    assert [s.name for s in profiling.spans()] == ["smoke.scope"]
+    profiling.reset()
     profiling.reset_timings()
     with profiling.timed("phase_a"):
         pass
