@@ -38,8 +38,8 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("integral.cu", "front.cu", "patchify.cu", "tilted.cu", "stage.cu",
            "packed_front.cu", "tile_node.cu", "tile_lbp.cu", "split_scan.cu", "split_class.cu",
-           "cat_split.cu", "hog_hist.cu", "hog_eval.cu", "mine.cu")
-# included by front.cu, stage.cu, packed_front.cu, tile_node.cu and tile_lbp.cu
+           "cat_split.cu", "hog_hist.cu", "hog_eval.cu", "mine.cu", "prep.cu")
+# included by front.cu, stage.cu, packed_front.cu, tile_node.cu, tile_lbp.cu and prep.cu
 HEADERS = ("cascade_tile.cuh",)
 NVCC_FLAGS = (
     "-O3",
@@ -89,6 +89,12 @@ _SIGNATURES = {
     "cct_stage": [_P, _P, _I, _I, _P, _P, _P, _P, _I,
                   _I, _I, _I, _I, _I, _P, _I, _I, _P,
                   _P, _P, _P, _I, _I, _P],
+    # sum, sq, canvas_w, code, inv_out, alive_out, out_h, out_w, win_h, win_w,
+    # kind, exact, records, pitch, tree_root, leaves, stage_start, stage_thr,
+    # stream
+    "cct_prep": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                 _I, _I, _P, _I, _P, _P, _P, _P,
+                 _P],
     # vs, ws, rs, kept, n, b, levels, total_w, total_r, q, thr, stream
     "cct_split_scan": [_P, _P, _P, _P, _I, _I, _I, _D, _D, _P, _P, _P],
     # vs, its strides (samples, features), order, its strides, the two
@@ -151,7 +157,7 @@ def _find_gxx() -> str:
     return gxx
 
 
-def _source_hash(flags=NVCC_FLAGS, names=SOURCES + HEADERS) -> str:
+def _source_hash(flags, names) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
     for name in names:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
@@ -162,7 +168,8 @@ def _source_hash(flags=NVCC_FLAGS, names=SOURCES + HEADERS) -> str:
 def build() -> str:
     """Compile the kernels (or reuse a build of the same sources);
     returns the shared library's path."""
-    out_dir = os.path.join(BUILD_DIR, _source_hash())
+    # the flags and sources as they are now: a tuning run swaps NVCC_FLAGS
+    out_dir = os.path.join(BUILD_DIR, _source_hash(NVCC_FLAGS, SOURCES + HEADERS))
     lib_path = os.path.join(out_dir, LIB_NAME)
     if os.path.exists(lib_path):
         return lib_path

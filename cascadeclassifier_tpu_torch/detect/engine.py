@@ -8,7 +8,7 @@ block nonzero, limb matmuls):
 
   resize   exact resize of every level into one pixel canvas (torch)
   integral sum and sum² integrals, int32 mod 2^32       (kernel 1)
-  prep     variance gate + stage 0 + closed-form OpenCV walk (torch)
+  prep     variance gate + stage 0 + OpenCV walk        (kernel prep)
   front    stages 1 … n_dense−1 at every alive window  (kernel 2)
   extract  ascending survivor indices (one host sync)   (torch)
   patchify the survivors' integral patches              (kernel 3)
@@ -52,17 +52,13 @@ import torch
 
 from cascadeclassifier_tpu_torch import _build
 from cascadeclassifier_tpu_torch.detect.compact import TailTables, extract_survivors, tail
-from cascadeclassifier_tpu_torch.detect.dense import (
-    dense_variance_gate,
-    parity_visited,
-    stage_pass,
-    static_visit_grid,
-)
+from cascadeclassifier_tpu_torch.detect.dense import dense_variance_gate, parity_visited
 from cascadeclassifier_tpu_torch.detect.detector import build_pixel_canvas, resize_tables
 from cascadeclassifier_tpu_torch.detect.front import front
 from cascadeclassifier_tpu_torch.detect.integral import integral
 from cascadeclassifier_tpu_torch.detect.packed_front import live_block_list, packed_front
 from cascadeclassifier_tpu_torch.detect.patchify import patchify
+from cascadeclassifier_tpu_torch.detect.prep import prep, walk_code, walk_inputs
 from cascadeclassifier_tpu_torch.detect.stage import stage
 from cascadeclassifier_tpu_torch.detect.tilted import tilted
 from cascadeclassifier_tpu_torch.utils.profiling import SYNC, count, span
@@ -94,21 +90,26 @@ class _Pipeline:
         self.last_counts = {}
         self._plans = {}
 
+    @staticmethod
+    def _plan_key(plan):
+        return (plan.img_w, plan.img_h, plan.canvas_h, plan.canvas_w,
+                tuple(plan.scaled_w), plan.packed)
+
     def _plan_tensors(self, plan):
-        """(resize tables, visit grid, its ordinal, walk resets or None)."""
-        key = (plan.img_w, plan.img_h, plan.canvas_h, plan.canvas_w,
-               tuple(plan.scaled_w), plan.packed)
+        """(resize tables, the walk's code plane: ``prep.walk_code``)."""
+        key = self._plan_key(plan)
         if key not in self._plans:
-            grid_np = static_visit_grid(plan)
-            grid = torch.as_tensor(grid_np, device=self.device)
-            ordinal = torch.cumsum(grid.to(torch.int32), dim=1, dtype=torch.int32)
-            reset = None
-            if plan.packed:
-                # band rows only: on ystep-2 rows the odd columns are off
-                # the grid by design and must not restart the walk
-                band = ~plan.row_is_plane[: plan.out_h, None]
-                reset = torch.as_tensor(band & ~grid_np, device=self.device)
-            self._plans[key] = (resize_tables(plan, self.device), grid, ordinal, reset)
+            code = torch.as_tensor(walk_code(plan), device=self.device)
+            self._plans[key] = (resize_tables(plan, self.device), code)
+        return self._plans[key]
+
+    def _walk_tensors(self, plan):
+        """(resize tables, visit grid, its ordinal) from the code plane, for
+        the torch walk (``dense.parity_visited``); built once a plan."""
+        key = ("walk", *self._plan_key(plan))
+        if key not in self._plans:
+            levels, code = self._plan_tensors(plan)
+            self._plans[key] = (levels, *walk_inputs(code)[:2])
         return self._plans[key]
 
 
@@ -132,17 +133,8 @@ class Engine(_Pipeline):
     def prep(self, sum2d, sq2d, plan):
         """Gate + stage 0 + the serial-walk visited mask → (inv_nf, alive);
         inv_nf is None for LBP, which has no gate."""
-        _, grid, ordinal, reset = self._plan_tensors(plan)
-        c = self.cascade
-        out_h, out_w = plan.out_h, plan.out_w
-        if c.is_lbp:
-            passed0 = stage_pass(sum2d, c.stages[0], out_h, out_w, None, exact=self.exact,
-                                 lbp=True)
-            return None, grid & passed0 & parity_visited(~passed0, grid, ordinal, reset)
-        gate, inv_nf = dense_variance_gate(sum2d, sq2d, c.win_w, c.win_h, out_h, out_w)
-        passed0 = stage_pass(sum2d, c.stages[0], out_h, out_w, inv_nf, exact=self.exact)
-        visited = parity_visited(gate & ~passed0, grid, ordinal, reset)
-        return inv_nf, gate & grid & passed0 & visited
+        code = self._plan_tensors(plan)[1]
+        return prep(sum2d, sq2d, code, self.cascade, impl=self.impl, exact=self.exact)
 
     def detect(self, img, plan, timings: dict | None = None):
         """u8 frame (H, W) on device → ascending flat indices (numpy int64,
@@ -193,7 +185,7 @@ class StageEngine(_Pipeline):
         walk, extract."""
         c = self.cascade
         with span("engine.resize", timings):
-            levels, grid, ordinal, _ = self._plan_tensors(plan)
+            levels, grid, ordinal = self._walk_tensors(plan)
             px = build_pixel_canvas(img, plan, levels)  # int32: the tilted kernel reads it too
         with span("engine.integral", timings):
             sum2d, sq2d = integral(px, impl=self.impl)

@@ -188,7 +188,7 @@ def main(extra):
     cas_b = det_b.packed
     n_st = len(cas_b.stages)
     plan_b = det_b.plan_for(1920, 1080, 1.1, None, None)
-    levels_b, grid_b = det_b.engine._plan_tensors(plan_b)[:2]
+    levels_b, grid_b = det_b.engine._walk_tensors(plan_b)[:2]
     px_b = build_pixel_canvas(img, plan_b, levels_b)
     sum_b, sq_b = integral(px_b)
     pad_b = int(plan_b.scaled_h.max()) + 1

@@ -8,7 +8,7 @@ TorchDetector on cuda:0, on 1920x1080 synthetic frames at scaleFactor
 .xml, 22 upright stages, engine "fused") on the plain vertical stack
 (pack_band=False):
 
-  (a) build     compile the CUDA kernels from csrc/ (fourteen sources), one nvcc per
+  (a) build     compile the CUDA kernels from csrc/ (fifteen sources), one nvcc per
                 source, all started together (seconds), and the host library
                 (csrc/cctpu_io.cpp, g++) that groups every frame's rects
   (b) integral  kernel integral vs its plain twin on frame 0's canvas, as
@@ -18,9 +18,10 @@ TorchDetector on cuda:0, on 1920x1080 synthetic frames at scaleFactor
                 ystep-2 and ystep-1 rows separately; survivors > 0
   (d) patchify  kernel patchify vs its twin on the front's survivors, at
                 a capacity equal to and larger than the live count
-  (e) e2e       frames 0-3 through the kernels equal the twin path on
-                the card; frames 0 and 1 equal the committed OpenCV
-                golden at minNeighbors 3 and 0; every kernel launched
+  (e) e2e       frames 0-3 through the kernels (integral, prep, front,
+                patchify) equal the twin path on the card; frames 0 and 1
+                equal the committed OpenCV golden at minNeighbors 3 and 0;
+                every kernel launched
   (f) timing    frames/s over 8 frames after a warm-up, phase table
 
 The upper-body path (haarcascade_upperbody.xml, 30 stages with tilted
@@ -51,7 +52,10 @@ fused engine's default), with the dense front and with the packed front
                 golden at minNeighbors 3 and 0, and packed_front (or
                 front) alone was launched
   (n) timing    per front: frames/s and phase table; both front kernels
-                and the list build timed on the shelf-packed canvas
+                and the list build timed on the shelf-packed canvas; the
+                prep kernel at the benchmark's shape (a 4K frame, the
+                shelf-packed plan, f64 sums) vs its twin bit for bit, one
+                launch a frame, timed
 
 The tiled kernels, the tilted kernel and the integral kernel at their
 edges:
@@ -559,7 +563,7 @@ def main():
     got = [det.raw_windows(frames[k], SF)[1] for k in range(4)]
     torch.cuda.synchronize()
     counts = dict(_build.LAUNCHES)
-    for name in ("integral", "front", "patchify"):
+    for name in ("integral", "prep", "front", "patchify"):
         check(counts.get(name, 0) > 0, f"kernel {name} was not launched on the main path")
         launches[name] = counts[name]
     for k in range(4):
@@ -628,7 +632,7 @@ def main():
     eng_b, cas_b = det_b.engine, det_b.packed
     n_st = len(cas_b.stages)
     plan_b = det_b.plan_for(W, H, SF, None, None)
-    levels_b, grid_b = eng_b._plan_tensors(plan_b)[:2]
+    levels_b, grid_b = eng_b._walk_tensors(plan_b)[:2]
     pad = int(plan_b.scaled_h.max()) + 1
 
     # (g) tilted
@@ -824,6 +828,8 @@ def main():
     work["packed_front"] = bound(10 * n_listed + 8 * n_live + 4,
                                  cascade_ops(cas, 1, front_eval_p))
 
+    prep_phase(dev, model, timed, work, errs, launches)
+
     # ------------------------------------------------------------------
     # (o) the tiled kernels at their edges
     t0 = time.perf_counter()
@@ -1014,6 +1020,9 @@ def main():
                  smi)
 
     meta = {
+        "prep": ("cascadeclassifier_tpu_torch/csrc/prep.cu",
+                 "cascadeclassifier_tpu/detect/engine.py:656 (FusedEngine prep head, XLA, "
+                 "not Pallas)"),
         "integral": ("cascadeclassifier_tpu_torch/csrc/integral.cu",
                      "cascadeclassifier_tpu/detect/pallas_integral.py:50"),
         "front": ("cascadeclassifier_tpu_torch/csrc/front.cu",
@@ -2788,6 +2797,52 @@ def host_cpu() -> str:
             f"{os.cpu_count()} CPUs")
 
 
+def prep_phase(dev, model, timed, work, errs, launches):
+    """(n) the prep kernel at the benchmark's shape: a 4K frame on the
+    shelf-packed plan with f64 stage sums (the detector's defaults), against
+    its twin bit for bit, one launch a frame, and its work for the table."""
+    from cascadeclassifier_tpu_torch import _build
+    from cascadeclassifier_tpu_torch.detect.detector import TorchDetector, build_pixel_canvas
+    from cascadeclassifier_tpu_torch.detect.integral import integral
+    from cascadeclassifier_tpu_torch.detect.prep import prep
+    from cascadeclassifier_tpu_torch.utils.synth import synth_frame
+
+    w, h, sf = 3840, 2160, 1.1
+    det = TorchDetector(model, device=dev)
+    check(det.exact and det.pack_band and det.engine_name == "fused",
+          "(n) prep: the frontal face's defaults are not exact, fused, shelf-packed")
+    cas, plan = det.packed, det.plan_for(w, h, sf, None, None)
+    img = synth_frame(0, h, w)
+    levels, code = det.engine._plan_tensors(plan)
+    s4, q4 = integral(build_pixel_canvas(torch.from_numpy(img).to(dev), plan, levels,
+                                         torch.uint8))
+    got = prep(s4, q4, code, cas, exact=True)
+    t0 = time.perf_counter()
+    want = prep(s4, q4, code, cas, impl="ref", exact=True)
+    torch.cuda.synchronize()
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    inv_bits = (got[0].view(torch.int32) != want[0].view(torch.int32)).sum()
+    errs["prep"] = int(inv_bits) + int((got[1] != want[1]).sum())
+    check(errs["prep"] == 0, f"(n) prep kernel != twin at 4K: {errs['prep']} windows differ")
+    _build.LAUNCHES.clear()
+    det.raw_windows(img, sf)
+    torch.cuda.synchronize()
+    launches["prep"] = _build.LAUNCHES["prep"]
+    check(launches["prep"] == 1, f"(n) a 4K frame made {launches['prep']} prep launches")
+    n_win = plan.out_h * plan.out_w
+    print(f"(n) prep: 4K shelf-packed canvas {plan.canvas_h} x {plan.canvas_w}, {n_win} "
+          f"windows, {int(((code & 1) != 0).sum())} on the grid, "
+          f"{int(((code & 2) != 0).sum())} reset columns, "
+          f"{int(got[1].sum())} alive; inv_nf bit for bit and alive equal to the twin "
+          f"(tolerance: exact); one launch a frame; the twin's one call {twin_ms:.1f} ms",
+          flush=True)
+    timed["prep"] = (lambda: prep(s4, q4, code, cas, exact=True), twin_ms, None, 1)
+    # sum and sq read once, the code byte read and inv_nf and alive written
+    # once a window; the gate (14 operations) and stage 0 at every window
+    work["prep"] = bound(2 * 4 * s4.numel() + (1 + 4 + 1) * n_win,
+                         n_win * (14 + stage_ops(cas.stages[0])))
+
+
 def kernel_vs_twin(name: str, run, ctx):
     """run(impl=...) through the kernel and its twin on the card, equal
     bit for bit → the kernel's output; records the max abs error, and the
@@ -2857,7 +2912,7 @@ def cascade_phase(tag: str, xml: str, golden_path: str, img0, ctx) -> list:
     pol = c.kind
     # the stage kernel on the stage engine's canvas, every stage
     plan_a = det_a.plan_for(1920, 1080, sf, None, None)
-    levels_a, grid_a = det_a.engine._plan_tensors(plan_a)[:2]
+    levels_a, grid_a = det_a.engine._walk_tensors(plan_a)[:2]
     s_a, q_a = integral(build_pixel_canvas(img0, plan_a, levels_a))
     inv_a, alive_a = None, grid_a
     if not c.is_lbp:
